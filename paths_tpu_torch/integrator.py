@@ -1,0 +1,369 @@
+"""Wavefront path-tracing integrator for sphere scenes (port of
+``paths_tpu/integrator.py``).
+
+Reference: src/trace.rs:7-121 (unidirectional path tracer with next-event
+estimation and Russian roulette).  A whole wavefront of rays advances in
+lockstep with per-lane ``alive`` masks, up to 11 bounces (trace.rs:14).
+
+Semantics as the reference package, including its two robustness
+deviations from upstream: self-intersection is prevented by excluding the
+originating primitive from traversal (on top of the normal*1e-4 origin
+offset, trace.rs:57,89), and point lights use the evidently intended
+geometry.  All randomness is a counter-based function of (pixel, sample,
+bounce, dim), see ``sampling/hashing.py``.
+
+Closest-hit and shadow queries over the small spheres go to the traversal
+kernels (``ops/sphere_traverse.py``) when the scene packed them; big and far
+spheres, and scenes with at most 32 small spheres, take the double-single
+test in ``geom/sphere.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from paths_tpu_torch import lights as LT
+from paths_tpu_torch import materials as M
+from paths_tpu_torch import sky as SK
+from paths_tpu_torch.geom import sphere as GS
+from paths_tpu_torch.math import vec
+from paths_tpu_torch.ops import sphere_traverse as ST
+from paths_tpu_torch.sampling import hashing as H
+from paths_tpu_torch.scene.types import SceneArrays, SceneStatic
+
+MAX_BOUNCES = 10  # trace.rs:14: `if loops > 10 break` -> 11 iterations
+RR_START = 2  # trace.rs:104
+SHADOW_EPS = 1e-4  # trace.rs:57,89
+BIG = 3.4e38
+DEAD_ORIGIN = 1e30  # origin push for lanes the traversal may skip
+
+# Primitive kinds.
+KIND_NONE = 0
+KIND_SPHERE = 1
+
+# Spheres per step of the double-single scan (bounds (lanes, spheres) temps).
+_SPH_STEP = 64
+
+
+def _scan_spheres(scene: SceneArrays, lo: int, hi: int, o, d, excl_kind,
+                  excl_idx, t_best, i_best):
+    """Closest hit among spheres [lo, hi) by the double-single test, merged
+    into (t_best, i_best): a sphere wins where its t is strictly below the
+    running best, the lowest index among equal t (the reference's unrolled
+    per-sphere loop)."""
+    excl = excl_kind == KIND_SPHERE
+    for a in range(lo, hi, _SPH_STEP):
+        b = min(a + _SPH_STEP, hi)
+        t, hit = GS.intersect(o[:, None, :], d[:, None, :],
+                              scene.sph_center[None, a:b],
+                              scene.sph_radius[None, a:b])
+        ids = torch.arange(a, b, dtype=torch.int32, device=o.device)
+        ok = hit & ~(excl[:, None] & (excl_idx[:, None] == ids[None, :]))
+        t = torch.where(ok, t, BIG)
+        arg = torch.argmin(t, dim=1)
+        tmin = torch.gather(t, 1, arg[:, None])[:, 0]
+        better = tmin < t_best
+        t_best = torch.where(better, tmin, t_best)
+        i_best = torch.where(better, arg.to(torch.int32) + a, i_best)
+    return t_best, i_best
+
+
+def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
+                     excl_kind, excl_idx):
+    """Closest sphere hit: (t, idx, ent), t = BIG on a miss.  Big/far
+    spheres seed the kernel's t_init, as in the reference's
+    _scan_spheres_pallas."""
+    n = o.shape[0]
+    t_best = torch.full((n,), BIG, device=o.device)
+    i_best = torch.zeros(n, dtype=torch.int32, device=o.device)
+    if static.sph_chunks == 0:
+        t_best, i_best = _scan_spheres(scene, 0, static.n_spheres, o, d,
+                                       excl_kind, excl_idx, t_best, i_best)
+        return t_best, i_best, scene.sph_ent[i_best]
+    t_best, i_best = _scan_spheres(scene, 0, static.n_sph_big, o, d,
+                                   excl_kind, excl_idx, t_best, i_best)
+    e_best = scene.sph_ent[i_best]
+    excl_i = torch.where(excl_kind == KIND_SPHERE, excl_idx, -1).to(torch.int32)
+    tk, ik, ek = ST.closest_hit_spheres(
+        scene.psph, static.sph_chunks, o.contiguous(), d.contiguous(),
+        excl_i, t_best.contiguous(),
+    )
+    better = tk < t_best
+    return (torch.where(better, tk, t_best), torch.where(better, ik, i_best),
+            torch.where(better, ek, e_best))
+
+
+def intersect_brief(static, scene, o, d, excl_kind, excl_idx):
+    """Closest hit, identity only: (found, kind, idx, ent, t)."""
+    n = o.shape[0]
+    t = torch.full((n,), BIG, device=o.device)
+    kind = torch.zeros(n, dtype=torch.int32, device=o.device)
+    idx = torch.zeros(n, dtype=torch.int32, device=o.device)
+    ent = torch.zeros(n, dtype=torch.int32, device=o.device)
+    if static.has_spheres:
+        ts, is_, es = _closest_spheres(static, scene, o, d, excl_kind, excl_idx)
+        better = ts < t
+        t = torch.where(better, ts, t)
+        kind = torch.where(better, KIND_SPHERE, kind).to(torch.int32)
+        idx = torch.where(better, is_, idx)
+        ent = torch.where(better, es, ent)
+    found = t < BIG
+    kind = torch.where(found, kind, KIND_NONE).to(torch.int32)
+    return found, kind, idx, ent, t
+
+
+def occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
+    """Shadow-ray occlusion: True per lane iff some primitive other than the
+    originating one and of an entity other than ``excl_ent`` is hit at
+    t < t_max (the any-hit form of trace.rs:61-66's occluder-identity
+    test).  Excluding the source sphere is sound: a shadow ray above the
+    local tangent plane cannot re-enter the convex sphere it left."""
+    if static.sph_chunks == 0 or not static.has_spheres:
+        f, _, _, e, t = intersect_brief(static, scene, o, d, excl_kind, excl_idx)
+        return f & (t < t_max) & (e != excl_ent)
+
+    excl_s = excl_kind == KIND_SPHERE
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for s in range(static.n_sph_big):
+        t, hit = GS.intersect(o, d, scene.sph_center[s], scene.sph_radius[s])
+        occ = occ | (hit & (t < t_max) & ~(excl_s & (excl_idx == s))
+                     & (scene.sph_ent[s] != excl_ent))
+    excl_i = torch.where(excl_s, excl_idx, -1).to(torch.int32)
+    o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o)
+    return occ | ST.occludes_spheres(
+        scene.psph, static.sph_chunks, o_eff.contiguous(), d.contiguous(),
+        excl_i, excl_ent.contiguous(), t_max.contiguous(),
+    )
+
+
+def intersect_full(static, scene, o, d, excl_kind, excl_idx):
+    """Closest hit with shading data: dict(found, kind, idx, ent, t,
+    location, normal); the sphere normal points outward (geom.rs:232)."""
+    found, kind, idx, ent, t = intersect_brief(static, scene, o, d, excl_kind, excl_idx)
+    location = o + d * torch.where(found, t, 0.0)[..., None]
+    normal = torch.zeros_like(o)
+    normal[..., 1] = 1.0
+    if static.has_spheres:
+        c = scene.sph_center[idx]
+        loc_s, n_s = GS.surface(o, d, t, c)
+        sel = (kind == KIND_SPHERE)[..., None]
+        location = torch.where(sel, loc_s, location)
+        normal = torch.where(sel, n_s, normal)
+    return dict(found=found, kind=kind, idx=idx, ent=ent, t=t,
+                location=location, normal=normal)
+
+
+def _col(a):
+    return a.to(torch.float32)[:, None]
+
+
+def _gather_material(static: SceneStatic, scene: SceneArrays, ent):
+    """Per-lane material record + light identity from one packed-row gather.
+    Returns (mat_record, is_light, light_emission).  (Vertex albedo applies
+    to triangle hits only, which this slice has none of.)"""
+    table = torch.cat(
+        [
+            scene.mat_albedo,                       # 0:3
+            scene.mat_emit,                         # 3:6
+            _col(scene.mat_r0),                     # 6
+            _col(scene.mat_metalness),              # 7
+            _col(scene.mat_roughness),              # 8
+            _col(scene.mat_mtype),                  # 9
+            _col(scene.ent_is_light),               # 10
+            scene.ent_light_emission,               # 11:14
+        ],
+        dim=1,
+    )
+    rows = table[ent]
+    rec = dict(
+        mtype=rows[:, 9].to(torch.int32),
+        albedo=rows[:, 0:3],
+        emit=rows[:, 3:6],
+        r0=rows[:, 6],
+        metalness=rows[:, 7],
+        roughness=rows[:, 8],
+    )
+    if static.has_fresnel:
+        ftable = torch.cat(
+            [
+                _col(scene.mat_fd_mtype),           # 0
+                _col(scene.mat_fs_mtype),           # 1
+                scene.mat_fs_albedo,                # 2:5
+                _col(scene.mat_fs_r0),              # 5
+                _col(scene.mat_fs_metalness),       # 6
+                _col(scene.mat_fs_roughness),       # 7
+                _col(scene.mat_fresnel_r0),         # 8
+            ],
+            dim=1,
+        )
+        frows = ftable[ent]
+        rec.update(
+            fd_mtype=frows[:, 0].to(torch.int32),
+            fs_mtype=frows[:, 1].to(torch.int32),
+            fs_albedo=frows[:, 2:5],
+            fs_r0=frows[:, 5],
+            fs_metalness=frows[:, 6],
+            fs_roughness=frows[:, 7],
+            fresnel_r0=frows[:, 8],
+        )
+    return rec, rows[:, 10] > 0.5, rows[:, 11:14]
+
+
+def _gather_light(scene: SceneArrays, li):
+    return dict(
+        ltype=scene.light_ltype[li],
+        position=scene.light_pos[li],
+        radius=scene.light_radius[li],
+        colour=scene.light_colour[li],
+        intensity=scene.light_intensity[li],
+        ent_id=scene.light_ent[li],
+    )
+
+
+def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
+    """Advance every lane's path by one segment (one bounce of trace.rs's
+    loop, trace.rs:13-118).
+
+    bounce: per-lane (N,) int64 or a Python int (RNG counter + RR gate).
+    state: (o, d, throughput, colour, alive, last_spec, excl_kind, excl_idx).
+    u(bounce, dim): per-lane uniform for this bounce and dimension slot.
+    """
+    (o, d, throughput, colour, alive, last_spec, excl_kind, excl_idx) = state
+
+    # Dead lanes keep stale rays; their origins are pushed far outside the
+    # scene so the traversal skips them.  Results are masked by `alive`.
+    o_eff = torch.where(alive[..., None], o, DEAD_ORIGIN)
+    hit = intersect_full(static, scene, o_eff, d, excl_kind, excl_idx)
+
+    # Miss -> skybox, evaluated at -direction (trace.rs:18-23).
+    sky_col = SK.ambient_light(static.sky_type, scene.sky, -d)
+    miss = alive & ~hit["found"]
+    colour = colour + torch.where(miss[..., None], throughput * sky_col, 0.0)
+    alive = alive & hit["found"]
+
+    # Facing check (trace.rs:25-28): cos_in = d . -n must be > 0.
+    normal = hit["normal"]
+    cos_in = vec.dot(d, -normal)
+    alive = alive & (cos_in > 0.0)
+
+    mat, is_light, light_emission = _gather_material(static, scene, hit["ent"])
+
+    # Direct light hit (trace.rs:30-41): counts only after a specular
+    # bounce (NEE covers the rest); the path ends either way.
+    light_gain = alive & is_light & last_spec
+    colour = colour + torch.where(light_gain[..., None],
+                                  throughput * light_emission, 0.0)
+    alive = alive & ~is_light
+
+    location = hit["location"]
+    vec_out = -d
+
+    # ---- Next Event Estimation (trace.rs:52-81) ----
+    if static.n_lights > 0:
+        u_pick = u(bounce, H.DIM_LIGHT_PICK)
+        li = torch.clamp_max((u_pick * static.n_lights).to(torch.int64),
+                             static.n_lights - 1)
+        light = _gather_light(scene, li)
+        in_dir, inv_pdf, max_dist = LT.sample(
+            light, location, u(bounce, H.DIM_LIGHT_U), u(bounce, H.DIM_LIGHT_V)
+        )
+        shadow_dir = -in_dir
+        shadow_o = location + normal * SHADOW_EPS
+        cos_theta = torch.clamp_min(vec.dot(normal, shadow_dir), 0.0)
+        brdf = M.eval_brdf(mat, vec_out, -shadow_dir, normal)
+        direct = (light["colour"] * light["intensity"][..., None] * brdf
+                  * inv_pdf[..., None])
+        # The shadow ray matters only where the unshadowed contribution is
+        # nonzero; other lanes get their origin pushed out.
+        want = alive & (cos_theta > 0.0) & (vec.max_component(direct) > 0.0)
+        is_point = light["ltype"] == LT.POINT
+        # Bound the query at the light itself: its analytic entry distance
+        # (sphere lights) or the point light's distance.
+        t_light, l_hit = GS.intersect(shadow_o, shadow_dir, light["position"],
+                                      light["radius"])
+        t_max_q = torch.where(is_point, max_dist,
+                              torch.where(l_hit, t_light, BIG))
+        excl_ent_q = torch.where(is_point, -1, light["ent_id"]).to(torch.int32)
+        shadow_o_eff = torch.where(want[..., None], shadow_o, DEAD_ORIGIN)
+        occluded = occluded_query(static, scene, shadow_o_eff, shadow_dir,
+                                  hit["kind"], hit["idx"], t_max_q, excl_ent_q)
+        ok = want & ~occluded
+        colour = colour + torch.where(ok[..., None], direct * throughput, 0.0)
+
+    # ---- BSDF sample & bounce (trace.rs:84-101) ----
+    new_dir, pdf, brdf, is_spec = M.sample(
+        mat, vec_out, normal,
+        u(bounce, H.DIM_LOBE), u(bounce, H.DIM_BSDF_U), u(bounce, H.DIM_BSDF_V),
+    )
+    pdf_safe = torch.where(pdf == 0.0, 1.0, pdf)
+    attenuation = torch.where((pdf == 0.0)[..., None], 0.0,
+                              brdf / pdf_safe[..., None])
+    new_throughput = throughput * attenuation
+    # Non-finite throughput terminates the path (the analogue of upstream's
+    # energy-check panic, colour.rs:56-60).
+    tp_finite = torch.isfinite(new_throughput).all(dim=-1)
+    dead = (vec.max_component(new_throughput) <= 0.0) | ~tp_finite  # trace.rs:96-98
+
+    emit = M.emittance(mat)  # trace.rs:100-101 (post-attenuation T)
+    colour = colour + torch.where((alive & ~dead)[..., None],
+                                  emit * new_throughput, 0.0)
+
+    # Russian roulette from bounce 2 (trace.rs:103-111).
+    survival = vec.max_component(new_throughput)
+    u_rr = u(bounce, H.DIM_RR)
+    rr_active = torch.as_tensor(bounce, device=o.device) >= RR_START
+    rr_kill = rr_active & (u_rr > survival)
+    survival_safe = torch.where(survival == 0.0, 1.0, survival)
+    new_throughput = torch.where((rr_active & ~rr_kill)[..., None],
+                                 new_throughput / survival_safe[..., None],
+                                 new_throughput)
+
+    step_alive = alive & ~dead & ~rr_kill
+    sa3 = step_alive[..., None]
+    throughput = torch.where(sa3, new_throughput, throughput)
+    o = torch.where(sa3, location + normal * SHADOW_EPS, o)
+    d = torch.where(sa3, new_dir, d)
+    last_spec = torch.where(step_alive, is_spec, last_spec)
+    excl_kind = torch.where(step_alive, hit["kind"], excl_kind)
+    excl_idx = torch.where(step_alive, hit["idx"], excl_idx)
+    return (o, d, throughput, colour, step_alive, last_spec, excl_kind, excl_idx)
+
+
+def fresh_path_state(o, d):
+    """Initial per-lane path state for fresh rays (trace.rs:9-11)."""
+    n = o.shape[0]
+    dev = o.device
+    return (
+        o,
+        d,
+        torch.ones((n, 3), device=dev),
+        torch.zeros((n, 3), device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev),  # trace.rs:11
+        torch.full((n,), KIND_NONE, dtype=torch.int32, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev),
+    )
+
+
+def lane_uniforms(seed, pixel_id, sample_id):
+    """u(bounce, dim) for lanes with identity (pixel_id, sample_id)."""
+    def u(bounce, dim):
+        ctr = (H.mul32(H.as_u32(bounce, pixel_id.device), H.DIMS_PER_BOUNCE)
+               + dim) & H.MASK32
+        return H.uniform(seed, pixel_id, sample_id, ctr)
+
+    return u
+
+
+def trace_rays(static: SceneStatic, scene: SceneArrays, ray_o, ray_d,
+               pixel_id, sample_id, seed) -> torch.Tensor:
+    """Radiance along N rays over the fixed bounce schedule (the forward of
+    the reference's differentiable path).  Returns (N, 3)."""
+    u = lane_uniforms(seed, pixel_id, sample_id)
+    state = fresh_path_state(ray_o, ray_d)
+    for bounce in range(static.max_bounces + 1):
+        # Whole-wave early out once every lane is dead.
+        if not bool(state[4].any()):
+            break
+        state = path_step(static, scene, bounce, state, u)
+    return state[3]
