@@ -67,8 +67,9 @@ def main(argv=None):
         width, height = (int(v) for v in args.size.lower().split("x"))
         cam = C.resize(cam, width, height)
     print(f"[{time.time()-t0:6.2f}s] scene built on {device}: "
-          f"{static.n_spheres} spheres, {static.n_lights} lights, "
-          f"{static.sph_chunks} kernel chunks")
+          f"{static.n_spheres} spheres ({static.sph_chunks} kernel chunks), "
+          f"{static.n_tris} triangles ({static.tri_chunks} kernel chunks of "
+          f"{static.tri_rows} rows), {static.n_lights} lights")
 
     t1 = time.time()
     img = render_image(static, scene, cam, width, height, spp=args.spp,

@@ -1,5 +1,4 @@
-"""Wavefront path-tracing integrator for sphere scenes (port of
-``paths_tpu/integrator.py``).
+"""Wavefront path-tracing integrator (port of ``paths_tpu/integrator.py``).
 
 Reference: src/trace.rs:7-121 (unidirectional path tracer with next-event
 estimation and Russian roulette).  A whole wavefront of rays advances in
@@ -12,10 +11,12 @@ offset, trace.rs:57,89), and point lights use the evidently intended
 geometry.  All randomness is a counter-based function of (pixel, sample,
 bounce, dim), see ``sampling/hashing.py``.
 
-Closest-hit and shadow queries over the small spheres go to the traversal
-kernels (``ops/sphere_traverse.py``) when the scene packed them; big and far
-spheres, and scenes with at most 32 small spheres, take the double-single
-test in ``geom/sphere.py``.
+Closest-hit and shadow queries over the small spheres and the triangles go
+to the traversal kernels (``ops/sphere_traverse.py``,
+``ops/tri_traverse.py``) when the scene packed them; big and far spheres,
+and scenes with at most 32 small spheres, take the double-single test in
+``geom/sphere.py``; meshes of at most 64 triangles take an unrolled scan of
+``geom/triangle.py``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ from paths_tpu_torch import lights as LT
 from paths_tpu_torch import materials as M
 from paths_tpu_torch import sky as SK
 from paths_tpu_torch.geom import sphere as GS
+from paths_tpu_torch.geom import triangle as GT
 from paths_tpu_torch.math import vec
 from paths_tpu_torch.ops import sphere_traverse as ST
+from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.sampling import hashing as H
 from paths_tpu_torch.scene.types import SceneArrays, SceneStatic
 
@@ -40,6 +43,7 @@ DEAD_ORIGIN = 1e30  # origin push for lanes the traversal may skip
 # Primitive kinds.
 KIND_NONE = 0
 KIND_SPHERE = 1
+KIND_TRI = 2
 
 # Spheres per step of the double-single scan (bounds (lanes, spheres) temps).
 _SPH_STEP = 64
@@ -93,6 +97,21 @@ def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
             torch.where(better, ek, e_best))
 
 
+def _scan_tris(static: SceneStatic, scene: SceneArrays, o, d, excl_kind,
+               excl_idx):
+    """Closest hit among the (at most 64) unpacked triangles: (t, idx), a
+    triangle winning where its t is strictly below the running best, the
+    lowest index among equal t (the reference's unrolled loop)."""
+    t, hit, *_ = GT.intersect(o[:, None, :], d[:, None, :],
+                              scene.tri_v0[None], scene.tri_v1[None],
+                              scene.tri_v2[None], scene.tri_n[None])
+    ids = torch.arange(static.n_tris, dtype=torch.int32, device=o.device)
+    excl = (excl_kind == KIND_TRI)[:, None] & (excl_idx[:, None] == ids[None, :])
+    t = torch.where(hit & ~excl, t, BIG)
+    arg = torch.argmin(t, dim=1)
+    return torch.gather(t, 1, arg[:, None])[:, 0], arg.to(torch.int32)
+
+
 def intersect_brief(static, scene, o, d, excl_kind, excl_idx):
     """Closest hit, identity only: (found, kind, idx, ent, t)."""
     n = o.shape[0]
@@ -107,6 +126,22 @@ def intersect_brief(static, scene, o, d, excl_kind, excl_idx):
         kind = torch.where(better, KIND_SPHERE, kind).to(torch.int32)
         idx = torch.where(better, is_, idx)
         ent = torch.where(better, es, ent)
+    if static.has_tris:
+        if static.tri_chunks > 0:
+            # The sphere hit seeds t_init, as in the reference.
+            excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)
+            tt, it, et = TT.closest_hit_tris(
+                scene.ptris, static.tri_chunks, o.contiguous(), d.contiguous(),
+                excl_i, t.contiguous(),
+            )
+        else:
+            tt, it = _scan_tris(static, scene, o, d, excl_kind, excl_idx)
+            et = scene.tri_ent[it]
+        better = tt < t
+        t = torch.where(better, tt, t)
+        kind = torch.where(better, KIND_TRI, kind).to(torch.int32)
+        idx = torch.where(better, it, idx)
+        ent = torch.where(better, et, ent)
     found = t < BIG
     kind = torch.where(found, kind, KIND_NONE).to(torch.int32)
     return found, kind, idx, ent, t
@@ -116,51 +151,103 @@ def occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
     """Shadow-ray occlusion: True per lane iff some primitive other than the
     originating one and of an entity other than ``excl_ent`` is hit at
     t < t_max (the any-hit form of trace.rs:61-66's occluder-identity
-    test).  Excluding the source sphere is sound: a shadow ray above the
-    local tangent plane cannot re-enter the convex sphere it left."""
-    if static.sph_chunks == 0 or not static.has_spheres:
+    test).  Excluding the source primitive is sound: a flat triangle cannot
+    occlude its own offset ray, and a shadow ray above the local tangent
+    plane cannot re-enter the convex sphere it left.
+
+    With a packed triangle table the triangles go to the any-hit kernel, and
+    the spheres to theirs (big and far spheres, or all spheres when there are
+    at most 32 small ones, by the double-single test).  The reference takes
+    this route only when spheres and triangles both have tables, and else
+    derives occlusion from the closest hit -- the same predicate up to exact
+    ties in t -- so its mesh scenes with few spheres (doom_standin,
+    dragon_standin) trace shadow rays with the closest-hit kernel.  Without a
+    triangle table, the port follows the reference."""
+    kernels = static.tri_chunks > 0 if static.has_tris else static.sph_chunks > 0
+    if not kernels:
         f, _, _, e, t = intersect_brief(static, scene, o, d, excl_kind, excl_idx)
         return f & (t < t_max) & (e != excl_ent)
 
-    excl_s = excl_kind == KIND_SPHERE
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    for s in range(static.n_sph_big):
-        t, hit = GS.intersect(o, d, scene.sph_center[s], scene.sph_radius[s])
-        occ = occ | (hit & (t < t_max) & ~(excl_s & (excl_idx == s))
-                     & (scene.sph_ent[s] != excl_ent))
-    excl_i = torch.where(excl_s, excl_idx, -1).to(torch.int32)
-    o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o)
-    return occ | ST.occludes_spheres(
-        scene.psph, static.sph_chunks, o_eff.contiguous(), d.contiguous(),
-        excl_i, excl_ent.contiguous(), t_max.contiguous(),
-    )
+    if static.has_spheres:
+        excl_s = excl_kind == KIND_SPHERE
+        n_scan = static.n_sph_big if static.sph_chunks else static.n_spheres
+        for s in range(n_scan):
+            t, hit = GS.intersect(o, d, scene.sph_center[s], scene.sph_radius[s])
+            occ = occ | (hit & (t < t_max) & ~(excl_s & (excl_idx == s))
+                         & (scene.sph_ent[s] != excl_ent))
+        if static.sph_chunks:
+            excl_i = torch.where(excl_s, excl_idx, -1).to(torch.int32)
+            o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o)
+            occ = occ | ST.occludes_spheres(
+                scene.psph, static.sph_chunks, o_eff.contiguous(), d.contiguous(),
+                excl_i, excl_ent.contiguous(), t_max.contiguous(),
+            )
+    if static.has_tris:
+        # Lanes already occluded are pushed out (dead: not tested again).
+        excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)
+        o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o)
+        occ = occ | TT.occludes_tris(
+            scene.ptris, static.tri_chunks, o_eff.contiguous(), d.contiguous(),
+            excl_i, excl_ent.contiguous(), t_max.contiguous(),
+        )
+    return occ
 
 
 def intersect_full(static, scene, o, d, excl_kind, excl_idx):
     """Closest hit with shading data: dict(found, kind, idx, ent, t,
-    location, normal); the sphere normal points outward (geom.rs:232)."""
+    location, normal, vtx_colour).  The sphere normal points outward
+    (geom.rs:232); the triangle normal is the geometric normal flipped to
+    face the ray (geom.rs:298-300), unless the mesh has smooth normals: then
+    the barycentric blend of its (unnormalised) vertex normals
+    (scene.rs:178-190, model.rs:142-156).  vtx_colour is the barycentric
+    blend of the vertex colours (ones off triangles)."""
     found, kind, idx, ent, t = intersect_brief(static, scene, o, d, excl_kind, excl_idx)
     location = o + d * torch.where(found, t, 0.0)[..., None]
     normal = torch.zeros_like(o)
     normal[..., 1] = 1.0
+    vtx_colour = torch.ones_like(o)
     if static.has_spheres:
-        c = scene.sph_center[idx]
+        c = scene.sph_center[torch.where(kind == KIND_SPHERE, idx, 0)]
         loc_s, n_s = GS.surface(o, d, t, c)
         sel = (kind == KIND_SPHERE)[..., None]
         location = torch.where(sel, loc_s, location)
         normal = torch.where(sel, n_s, normal)
+    if static.has_tris:
+        # One packed row gather for all per-triangle shading data.
+        rows = torch.cat(
+            [scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_n,  # 0:12
+             scene.tri_vn0, scene.tri_vn1, scene.tri_vn2,            # 12:21
+             scene.tri_vc0, scene.tri_vc1, scene.tri_vc2,            # 21:30
+             _col(scene.tri_smooth)],                                # 30
+            dim=1,
+        )[torch.where(kind == KIND_TRI, idx, 0)]
+        n = rows[:, 9:12]
+        # Barycentrics recomputed at the chosen triangle.
+        _, _, bx, by, bz, cos = GT.intersect(o, d, rows[:, 0:3], rows[:, 3:6],
+                                             rows[:, 6:9], n)
+        geo_n = n * torch.where(cos > 0.0, -1.0, 1.0)[..., None]
+        smooth_n = (rows[:, 12:15] * bx[..., None] + rows[:, 15:18] * by[..., None]
+                    + rows[:, 18:21] * bz[..., None])
+        tri_normal = torch.where((rows[:, 30] > 0.5)[..., None], smooth_n, geo_n)
+        vc = (rows[:, 21:24] * bx[..., None] + rows[:, 24:27] * by[..., None]
+              + rows[:, 27:30] * bz[..., None])
+        sel = (kind == KIND_TRI)[..., None]
+        normal = torch.where(sel, tri_normal, normal)
+        vtx_colour = torch.where(sel, vc, vtx_colour)
     return dict(found=found, kind=kind, idx=idx, ent=ent, t=t,
-                location=location, normal=normal)
+                location=location, normal=normal, vtx_colour=vtx_colour)
 
 
 def _col(a):
     return a.to(torch.float32)[:, None]
 
 
-def _gather_material(static: SceneStatic, scene: SceneArrays, ent):
-    """Per-lane material record + light identity from one packed-row gather.
-    Returns (mat_record, is_light, light_emission).  (Vertex albedo applies
-    to triangle hits only, which this slice has none of.)"""
+def _gather_material(static: SceneStatic, scene: SceneArrays, ent, kind,
+                     vtx_colour):
+    """Per-lane material record + light identity from one packed-row gather;
+    vertex albedo (material.rs:183-195) on triangle hits of materials that
+    ask for it.  Returns (mat_record, is_light, light_emission)."""
     table = torch.cat(
         [
             scene.mat_albedo,                       # 0:3
@@ -169,15 +256,17 @@ def _gather_material(static: SceneStatic, scene: SceneArrays, ent):
             _col(scene.mat_metalness),              # 7
             _col(scene.mat_roughness),              # 8
             _col(scene.mat_mtype),                  # 9
-            _col(scene.ent_is_light),               # 10
-            scene.ent_light_emission,               # 11:14
+            _col(scene.mat_albedo_vertex),          # 10
+            _col(scene.ent_is_light),               # 11
+            scene.ent_light_emission,               # 12:15
         ],
         dim=1,
     )
     rows = table[ent]
+    use_v = (rows[:, 10] > 0.5) & (kind == KIND_TRI)
     rec = dict(
         mtype=rows[:, 9].to(torch.int32),
-        albedo=rows[:, 0:3],
+        albedo=torch.where(use_v[..., None], vtx_colour, rows[:, 0:3]),
         emit=rows[:, 3:6],
         r0=rows[:, 6],
         metalness=rows[:, 7],
@@ -206,7 +295,7 @@ def _gather_material(static: SceneStatic, scene: SceneArrays, ent):
             fs_roughness=frows[:, 7],
             fresnel_r0=frows[:, 8],
         )
-    return rec, rows[:, 10] > 0.5, rows[:, 11:14]
+    return rec, rows[:, 11] > 0.5, rows[:, 12:15]
 
 
 def _gather_light(scene: SceneArrays, li):
@@ -246,7 +335,8 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
     cos_in = vec.dot(d, -normal)
     alive = alive & (cos_in > 0.0)
 
-    mat, is_light, light_emission = _gather_material(static, scene, hit["ent"])
+    mat, is_light, light_emission = _gather_material(
+        static, scene, hit["ent"], hit["kind"], hit["vtx_colour"])
 
     # Direct light hit (trace.rs:30-41): counts only after a specular
     # bounce (NEE covers the rest); the path ends either way.

@@ -28,16 +28,12 @@ with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from paths_tpu_torch import native
 from paths_tpu_torch.math import vec
 
 SPH_STRIDE = 8  # floats per sphere slot: [cx cy cz r^2 gid ent 0 0]
@@ -217,53 +213,23 @@ def occludes_spheres_plain(table, o, d, excl_idx, excl_ent, t_max):
 # CUDA kernels: build, bind, launch.
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "sphere_traverse.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paths_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return found
-
-
 def build_kernels(verbose: bool = False) -> ctypes.CDLL:
-    """Compile csrc/sphere_traverse.cu (once per source version) and load
-    it.  The library name carries a hash of the source and flags, so an
-    edited source is rebuilt."""
+    """Build csrc/sphere_traverse.cu (once per source version) and load
+    it."""
     global _lib
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"sphere_traverse_{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        if verbose and res.stderr:
-            print(res.stderr.strip())
-        os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sphere_closest_hit.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p]
-    lib.sphere_closest_hit.restype = i
-    lib.sphere_any_hit.argtypes = [p, p, i, p, p, p, p, p, i, p, p]
-    lib.sphere_any_hit.restype = i
-    _lib = lib
-    return lib
+    if _lib is None:
+        lib = native.load_library("sphere_traverse.cu", native.nvcc(),
+                                  native.NVCC_FLAGS, verbose)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sphere_closest_hit.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p]
+        lib.sphere_closest_hit.restype = i
+        lib.sphere_any_hit.argtypes = [p, p, i, p, p, p, p, p, i, p, p]
+        lib.sphere_any_hit.restype = i
+        _lib = lib
+    return _lib
 
 
 def _check(name, x, dtype, shape, device):

@@ -1,23 +1,27 @@
 """Scene build: description -> flattened SoA tensors (port of
-``paths_tpu/scene/build.py`` for sphere scenes).
+``paths_tpu/scene/build.py``).
 
 Reference: Scene::new (scene.rs:143-170) and SceneDescription::scene
-(serde.rs:81-155): area lights contribute their sphere primitive, materials
-resolve (Auto -> white Lambertian for spheres), and everything lands in
-SceneArrays.  Host math runs in f64 and is cast to f32 on upload.
+(serde.rs:81-155): meshes are expanded to world-space triangles (rotation @
+v * scale + translation, geom.rs:251-261), area lights contribute their
+sphere primitive, materials resolve (Auto pulls the OBJ diffuse, else white
+Lambertian, serde.rs:126-131), and everything lands in SceneArrays.  Host
+math runs in f64 and is cast to f32 on upload.
 
 Spheres split as in the reference: big or far spheres (radius or any centre
 coordinate past 1e3, the radius-1e6 ground planes) stay on the
 double-single path; when more than 32 small spheres remain they are
 morton-packed for the traversal kernels and the scene arrays are put in the
-packed order, so sphere ids equal the reference package's.  That choice does
-not depend on the device: on the CPU the kernel wrappers run their plain
-versions.
-
-Meshes arrive with slice 2 of the port (ROADMAP Queue 1) and raise here.
+packed order, so sphere ids equal the reference package's.  Meshes of more
+than 64 triangles in all are BVH-ordered and packed for the triangle kernels
+(the reference's forced-kernel build); at most 64 take the unrolled scan in
+the integrator.  Neither choice depends on the device: on the CPU the kernel
+wrappers run their plain versions.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -26,15 +30,21 @@ from paths_tpu_torch import lights as LT
 from paths_tpu_torch import materials as M
 from paths_tpu_torch import resolve_device
 from paths_tpu_torch import sky as SK
+from paths_tpu_torch.bvh.build import build_bvh
 from paths_tpu_torch.camera import make_camera
+from paths_tpu_torch.math import matrix as mat
 from paths_tpu_torch.ops import sphere_traverse as ST
+from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene import desc as D
+from paths_tpu_torch.scene.models import ModelLibrary
 from paths_tpu_torch.scene.types import SceneArrays, SceneStatic
 
 _NO_SUB = (M.LAMBERTIAN, np.zeros(3), 0.0, 0.0, 0.0)  # (mtype, albedo, r0, metal, rough)
 
 # More small spheres than this go to the packed table and the kernels.
 KERNEL_MIN_SPHERES = 32
+# More triangles than this go to the packed table and the kernels.
+KERNEL_MIN_TRIS = 64
 
 
 def _basic_sub_row(m: D.MaterialD):
@@ -94,23 +104,63 @@ _LIGHT_ROW = (M.LAMBERTIAN, np.zeros(3), False, np.zeros(3), 0.0, 0.0, 0.0,
               M.LAMBERTIAN, _NO_SUB, 0.0)
 
 
+def _mesh_triangles(mesh: D.MeshD, model, ent: int) -> dict:
+    """One model of a mesh object as world-space triangle arrays
+    (build.py:160-209 of the reference): rotation, scale and translation
+    baked (geom.rs:251-261); degenerate (NaN-normal) faces dropped; smooth
+    normals rotated, falling back to the face normal where a vertex has no
+    valid face; vertex colours, else ones."""
+    rot = mat.mesh_rotation(mesh.rotation.pitch, mesh.rotation.yaw, mesh.rotation.roll)
+    if mesh.smooth_normals:
+        model.compute_vertex_normals()
+    verts_w = model.vertices @ rot.T * mesh.scale + np.array(mesh.translation.tolist())
+    fn_w = model.face_normals @ rot.T  # geom.rs:259
+    ok = ~np.isnan(fn_w).any(axis=1)  # model.rs:174-192
+    faces = model.faces[ok]
+    n_w = fn_w[ok]
+    smooth = mesh.smooth_normals and model.vertex_normals is not None
+    if smooth:
+        vn_w = model.vertex_normals @ rot.T  # scene.rs:184
+        vn = [vn_w[faces[:, k]] for k in range(3)]
+        for arr in vn:
+            bad = np.isnan(arr).any(axis=1)
+            arr[bad] = n_w[bad]
+    else:
+        vn = [n_w] * 3
+    if model.vertex_colours is not None:
+        vc = [model.vertex_colours[faces[:, k]] for k in range(3)]
+    else:
+        vc = [np.ones((len(faces), 3))] * 3
+    return dict(v0=verts_w[faces[:, 0]], v1=verts_w[faces[:, 1]],
+                v2=verts_w[faces[:, 2]], n=n_w,
+                vn0=vn[0], vn1=vn[1], vn2=vn[2], vc0=vc[0], vc1=vc[1], vc2=vc[2],
+                ent=np.full(len(faces), ent, np.int64),
+                smooth=np.full(len(faces), smooth, bool))
+
+
 def build_scene(sd: D.SceneDescription, device=None):
     """Returns (static, scene_arrays, camera) on ``device`` (default cuda;
-    raises without a CUDA device unless device="cpu")."""
+    raises without a CUDA device unless device="cpu").  Model files resolve
+    against the working directory, the scene's directory and its parent."""
     device = resolve_device(device)
+    library = ModelLibrary(search_dirs=[".", sd.base_dir, os.path.dirname(sd.base_dir)])
+    for name, filepath in sd.models.items():
+        library.declare(name, filepath)
     sph_center, sph_radius, sph_ent = [], [], []
+    tri_parts = []  # per mesh model: dict of triangle arrays
     rows = []  # entity/material rows: objects first, lights appended after
 
     for o in sd.objects:
-        if o.shape_kind != "sphere":
-            raise NotImplementedError(
-                "meshes are not ported yet: they arrive with slice 2 of the "
-                "port (ROADMAP Queue 1, triangle traversal K3/K4)"
-            )
-        rows.append(_material_row(o.material))
-        sph_center.append(np.array(o.sphere.center.tolist()))
-        sph_radius.append(o.sphere.radius)
-        sph_ent.append(len(rows) - 1)
+        if o.shape_kind == "sphere":
+            rows.append(_material_row(o.material))
+            sph_center.append(np.array(o.sphere.center.tolist()))
+            sph_radius.append(o.sphere.radius)
+            sph_ent.append(len(rows) - 1)
+            continue
+        for ix in library.load(o.mesh.model):
+            model = library.get(ix)
+            rows.append(_material_row(o.material, model.diffuse))
+            tri_parts.append(_mesh_triangles(o.mesh, model, len(rows) - 1))
 
     # Lights (scene.rs:155-164: area lights also become primitives).
     l_type, l_pos, l_rad, l_col, l_int, l_ent = [], [], [], [], [], []
@@ -184,6 +234,25 @@ def build_scene(sd: D.SceneDescription, device=None):
     else:
         sphc = np.zeros((1, 3)); sphr = np.zeros(1); sphe = np.zeros(1, np.int64)
 
+    # ---- triangles: BVH order, packed kernel table ----
+    ptris = None
+    tri_chunks = 0
+    tri_rows = TT.ROWS_PER_CHUNK
+    n_tris = sum(len(p["v0"]) for p in tri_parts)
+    if n_tris:
+        tri = {k: np.concatenate([p[k] for p in tri_parts]) for k in tri_parts[0]}
+        if n_tris > KERNEL_MIN_TRIS:
+            flat = build_bvh(np.minimum(np.minimum(tri["v0"], tri["v1"]), tri["v2"]),
+                             np.maximum(np.maximum(tri["v0"], tri["v1"]), tri["v2"]))
+            tri = {k: v[flat.order] for k, v in tri.items()}
+            ptris, tri_chunks, tri_rows = TT.pack_tris(
+                flat, tri["v0"], tri["v1"], tri["v2"], tri["n"], ent=tri["ent"],
+                device=device)
+    else:
+        z = np.zeros((1, 3))
+        tri = dict(v0=z, v1=z, v2=z, n=z, vn0=z, vn1=z, vn2=z, vc0=z, vc1=z,
+                   vc2=z, ent=np.zeros(1, np.int64), smooth=np.zeros(1, bool))
+
     # ---- lights SoA ----
     if n_lights:
         lt = np.array(l_type, np.int32)
@@ -219,6 +288,11 @@ def build_scene(sd: D.SceneDescription, device=None):
 
     arrays = SceneArrays(
         sph_center=f32(sphc), sph_radius=f32(sphr), sph_ent=i32(sphe),
+        tri_v0=f32(tri["v0"]), tri_v1=f32(tri["v1"]), tri_v2=f32(tri["v2"]),
+        tri_n=f32(tri["n"]),
+        tri_vn0=f32(tri["vn0"]), tri_vn1=f32(tri["vn1"]), tri_vn2=f32(tri["vn2"]),
+        tri_vc0=f32(tri["vc0"]), tri_vc1=f32(tri["vc1"]), tri_vc2=f32(tri["vc2"]),
+        tri_ent=i32(tri["ent"]), tri_smooth=flag(tri["smooth"]),
         ent_is_light=flag(ent_is_light),
         ent_light_emission=f32(ent_light_emission),
         mat_mtype=i32(mtype), mat_albedo=f32(albedo),
@@ -233,6 +307,7 @@ def build_scene(sd: D.SceneDescription, device=None):
         light_colour=f32(lc), light_intensity=f32(li_arr), light_ent=i32(le),
         sky=sky_arr,
         psph=psph,
+        ptris=ptris,
     )
     static = SceneStatic(
         n_spheres=n_spheres,
@@ -242,6 +317,9 @@ def build_scene(sd: D.SceneDescription, device=None):
         has_fresnel=has_fresnel,
         sph_chunks=sph_chunks,
         n_sph_big=n_sph_big,
+        n_tris=n_tris,
+        tri_chunks=tri_chunks,
+        tri_rows=tri_rows,
     )
     cam = make_camera(
         width=sd.camera.image_width,

@@ -1,15 +1,19 @@
 """Scene representation: flattened SoA tensors (port of
-``paths_tpu/scene/types.py`` for sphere scenes).
+``paths_tpu/scene/types.py``).
 
-Every object and area light is flattened at build time into world-space
-primitive arrays (reference: Scene, src/scene.rs:134-170): spheres in SoA
-tensors, and one entity table (objects, then lights) holding the material
-SoA and light emission.  ``SceneArrays`` holds the tensors, ``SceneStatic``
-the build-time facts (counts, sky type, traversal layout).
+Every object, mesh and area light is flattened at build time into
+world-space primitive arrays (reference: Scene, src/scene.rs:134-170):
+spheres and triangles in SoA tensors, per-triangle shading data baked in
+world space (vertex normals rotated, scene.rs:184; vertex colours,
+model.rs:158-172), and one entity table (objects, then lights) holding the
+material SoA and light emission.  ``SceneArrays`` holds the tensors,
+``SceneStatic`` the build-time facts (counts, sky type, traversal layout).
 
-Triangles (meshes) arrive with slice 2 of the port; the reference's TPU
-schedule fields (one-hot tables, interpret mode, block widths, wave
-presorting) have no counterpart here.
+The reference's TPU schedule fields (one-hot tables, interpret mode, block
+widths, streamed and replicated triangle tables, wave presorting, occlusion
+sorting) have no counterpart here, nor has its XLA BVH fallback
+(``bvh``, ``use_bvh``): the port takes the kernels for every mesh of more
+than 64 triangles.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from paths_tpu_torch.ops.sphere_traverse import PackedSpheres
+from paths_tpu_torch.ops.tri_traverse import PackedTris
 from paths_tpu_torch.sky import Sky
 
 
@@ -32,6 +37,21 @@ class SceneArrays(NamedTuple):
     sph_center: torch.Tensor  # (S, 3)
     sph_radius: torch.Tensor  # (S,)
     sph_ent: torch.Tensor  # (S,) int32 entity index
+
+    # Triangles in world space, in the BVH's order when the scene packed
+    # them (so packed gids index these arrays directly).
+    tri_v0: torch.Tensor  # (T, 3)
+    tri_v1: torch.Tensor
+    tri_v2: torch.Tensor
+    tri_n: torch.Tensor  # (T, 3) unit geometric normal
+    tri_vn0: torch.Tensor  # (T, 3) shading normals (may be non-unit,
+    tri_vn1: torch.Tensor  #   reproducing model.rs:142-156 -- no renorm)
+    tri_vn2: torch.Tensor
+    tri_vc0: torch.Tensor  # (T, 3) vertex colours (ones when absent)
+    tri_vc1: torch.Tensor
+    tri_vc2: torch.Tensor
+    tri_ent: torch.Tensor  # (T,) int32
+    tri_smooth: torch.Tensor  # (T,) bool: smooth normals (no backface flip)
 
     # Entity table: objects [0, n_objects) then lights [n_objects, E).
     ent_is_light: torch.Tensor  # (E,) bool
@@ -67,6 +87,9 @@ class SceneArrays(NamedTuple):
     # Packed small-sphere table for the traversal kernels (None when the
     # scene has at most 32 small spheres).
     psph: Optional[PackedSpheres] = None
+    # Packed triangle table for the traversal kernels (None when the scene
+    # has at most 64 triangles).
+    ptris: Optional[PackedTris] = None
 
 
 @dataclass(frozen=True)
@@ -84,6 +107,11 @@ class SceneStatic:
     # Spheres [0, n_sph_big) are big or far and stay on the double-single
     # path even when the kernel runs.
     n_sph_big: int = 0
+    n_tris: int = 0
+    # Chunks of the packed triangle table (0: at most 64 triangles, the
+    # unrolled scan) and its rows per chunk (8, or 20 for large tables).
+    tri_chunks: int = 0
+    tri_rows: int = 8
     # Bounce cap (trace.rs:14 caps `loops > 10` -> 11 iterations).
     max_bounces: int = 10
 
@@ -91,9 +119,15 @@ class SceneStatic:
     def has_spheres(self) -> bool:
         return self.n_spheres > 0
 
+    @property
+    def has_tris(self) -> bool:
+        return self.n_tris > 0
+
 
 # Reference-package field names that differ from the port's.
-_STATIC_RENAMES = {"pallas_sph_chunks": "sph_chunks"}
+_STATIC_RENAMES = {"pallas_sph_chunks": "sph_chunks",
+                   "pallas_tri_chunks": "tri_chunks",
+                   "pallas_tri_rows": "tri_rows"}
 
 
 def scene_from_numpy(static_fields: dict, arrays: dict, device):
@@ -101,7 +135,9 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
     numpy: ``static_fields`` is its SceneStatic as a dict (fields the port
     has no counterpart for are ignored), ``arrays`` maps each SceneArrays
     field name to an array, with ``sky.colour_a``/``sky.colour_b`` for the
-    sky and ``psph.tris``/``psph.chunk_meta`` for the packed sphere table.
+    sky, ``psph.tris``/``psph.chunk_meta`` for the packed sphere table and
+    ``ptris.tris``/``ptris.chunk_meta``/``ptris.tri_ent`` for the packed
+    triangle table (the reference's replicated table is not read).
     Returns (SceneStatic, SceneArrays) on ``device``."""
     names = {f.name for f in dataclasses.fields(SceneStatic)}
     kw = {}
@@ -129,6 +165,11 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
                 PackedSpheres(tensor(arrays["psph.tris"]),
                               tensor(arrays["psph.chunk_meta"]))
                 if "psph.tris" in arrays else None
+            )
+        elif name == "ptris":
+            fields[name] = (
+                PackedTris(*(tensor(arrays[f"ptris.{f}"]) for f in PackedTris._fields))
+                if "ptris.tris" in arrays else None
             )
         else:
             fields[name] = tensor(arrays[name])

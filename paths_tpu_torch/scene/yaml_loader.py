@@ -5,15 +5,296 @@ leniently where upstream's serde is strict: ``albedo: {r,g,b}`` without a
 ``type: Rgb`` tag is Rgb, and missing ``lights:`` / ``models:`` / gloss
 ``metalness`` default to [] / {} / 0.0.
 
-``yaml`` is imported only when a YAML file is loaded, so the stress-scene
-path needs no YAML package.
+The port needs no YAML package: ``parse_yaml`` reads the subset of YAML
+that scene files use -- block mappings and ``- `` lists, flow mappings and
+lists on one line (``{ x: 0.0, y: 1 }``, ``[]``), comments, and quoted or
+plain scalars (numbers, booleans, null and strings, resolved as YAML 1.1's
+core schema does) -- and raises on anything else, naming the line.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 from paths_tpu_torch.scene import desc as D
+
+
+class YamlSubsetError(ValueError):
+    """Syntax outside the subset of YAML that scene files use."""
+
+
+# YAML 1.1 plain-scalar resolution (PyYAML's safe_load), decimal forms.
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_BOOL = {v: True for v in ("yes", "Yes", "YES", "true", "True", "TRUE",
+                           "on", "On", "ON")}
+_BOOL.update({v: False for v in ("no", "No", "NO", "false", "False", "FALSE",
+                                 "off", "Off", "OFF")})
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?)$")
+_INF = re.compile(r"^[-+]?\.(?:inf|Inf|INF)$")
+_NAN = re.compile(r"^\.(?:nan|NaN|NAN)$")
+_ESCAPES = {"n": "\n", "t": "\t", "r": "\r", "0": "\0", "\\": "\\", '"': '"',
+            "/": "/", " ": " "}
+
+
+def _plain(text: str):
+    if _NULL.match(text):
+        return None
+    if text in _BOOL:
+        return _BOOL[text]
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        return float(text.replace("_", ""))
+    if _INF.match(text):
+        return float("-inf") if text[0] == "-" else float("inf")
+    if _NAN.match(text):
+        return float("nan")
+    return text
+
+
+class _Line:
+    """One scene-file line: its number, indentation and content with the
+    comment removed."""
+
+    def __init__(self, no: int, text: str):
+        self.no = no
+        body = text.rstrip()
+        stripped = body.lstrip(" ")
+        if stripped.startswith("\t"):
+            raise YamlSubsetError(f"line {no}: tab in indentation")
+        self.indent = len(body) - len(stripped)
+        self.text = _strip_comment(stripped)
+
+
+def _strip_comment(text: str) -> str:
+    """text without a '#' comment outside quotes."""
+    quote = None
+    i = 0
+    while i < len(text):
+        ch = text[i]
+        if quote:
+            if ch == quote:
+                quote = None
+            elif ch == "\\" and quote == '"':
+                i += 1  # the escaped character
+        elif ch in "'\"" and (i == 0 or text[i - 1] in " [{,:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or text[i - 1] == " "):
+            return text[:i].rstrip()
+        i += 1
+    return text
+
+
+class _Scanner:
+    """Reads one scalar or flow collection from a string, from pos."""
+
+    def __init__(self, text: str, no: int):
+        self.text, self.pos, self.no = text, 0, no
+
+    def error(self, what: str):
+        return YamlSubsetError(f"line {self.no}: {what}: {self.text!r}")
+
+    def skip_space(self):
+        while self.pos < len(self.text) and self.text[self.pos] == " ":
+            self.pos += 1
+
+    def peek(self) -> str:
+        return self.text[self.pos] if self.pos < len(self.text) else ""
+
+    def value(self, flow: bool):
+        """A node at pos: a flow collection, a quoted scalar or a plain
+        scalar (in flow context, ended by ',', ']', '}' or ': ')."""
+        self.skip_space()
+        ch = self.peek()
+        if ch == "{":
+            return self.flow_mapping()
+        if ch == "[":
+            return self.flow_sequence()
+        if ch in ("'", '"'):
+            return self.quoted()
+        if ch in ("&", "*", "!", "|", ">", "%", "@", "`") or (
+                ch in ("-", "?") and self.text[self.pos + 1: self.pos + 2] in ("", " ")):
+            raise self.error("unsupported YAML syntax")
+        start = self.pos
+        while self.pos < len(self.text):
+            c = self.text[self.pos]
+            if flow and c in ",]}":
+                break
+            if c == ":" and self.text[self.pos + 1: self.pos + 2] in ("", " "):
+                if flow:
+                    break
+                raise self.error("a mapping entry is not allowed here")
+            self.pos += 1
+        return _plain(self.text[start: self.pos].strip())
+
+    def quoted(self) -> str:
+        q = self.text[self.pos]
+        self.pos += 1
+        out = []
+        while True:
+            if self.pos >= len(self.text):
+                raise self.error("unterminated quoted string")
+            c = self.text[self.pos]
+            self.pos += 1
+            if c == q:
+                if q == "'" and self.peek() == "'":
+                    out.append("'")
+                    self.pos += 1
+                    continue
+                return "".join(out)
+            if c == "\\" and q == '"':
+                esc = self.peek()
+                if esc not in _ESCAPES:
+                    raise self.error(f"unsupported escape \\{esc}")
+                out.append(_ESCAPES[esc])
+                self.pos += 1
+                continue
+            out.append(c)
+
+    def expect(self, ch: str):
+        self.skip_space()
+        if self.peek() != ch:
+            raise self.error(f"expected {ch!r}")
+        self.pos += 1
+
+    def flow_sequence(self) -> list:
+        self.expect("[")
+        out = []
+        self.skip_space()
+        if self.peek() == "]":
+            self.pos += 1
+            return out
+        while True:
+            out.append(self.value(flow=True))
+            self.skip_space()
+            if self.peek() == "]":
+                self.pos += 1
+                return out
+            self.expect(",")
+
+    def flow_mapping(self) -> dict:
+        self.expect("{")
+        out = {}
+        self.skip_space()
+        if self.peek() == "}":
+            self.pos += 1
+            return out
+        while True:
+            key = self.value(flow=True)
+            self.expect(":")
+            out[key] = self.value(flow=True)
+            self.skip_space()
+            if self.peek() == "}":
+                self.pos += 1
+                return out
+            self.expect(",")
+
+    def rest(self):
+        """The whole remainder as one node; nothing may follow it."""
+        node = self.value(flow=False)
+        self.skip_space()
+        if self.pos != len(self.text):
+            raise self.error("unexpected text after a value")
+        return node
+
+
+def _split_key(line: _Line):
+    """'key: value' / 'key:' -> (key, value text), or None when the line is
+    not a mapping entry."""
+    sc = _Scanner(line.text, line.no)
+    if sc.peek() in ("'", '"'):
+        key = sc.quoted()
+        m = re.match(r" *:(?: |$)", sc.text[sc.pos:])
+        return None if m is None else (key, sc.text[sc.pos + m.end():].strip())
+    m = re.search(r":(?: |$)", line.text)
+    if m is None or line.text[:1] in "{[":
+        return None
+    return _plain(line.text[: m.start()].strip()), line.text[m.end():].strip()
+
+
+def _is_item(text: str) -> bool:
+    return text == "-" or text.startswith("- ")
+
+
+def _block(lines: list, i: int, indent: int):
+    """The block node whose first line is lines[i] at this indentation.
+    Returns (node, next line index)."""
+    node, i = (_sequence if _is_item(lines[i].text) else _mapping)(lines, i, indent)
+    if i < len(lines) and lines[i].indent > indent:
+        raise YamlSubsetError(f"line {lines[i].no}: unexpected indentation")
+    return node, i
+
+
+def _nested(lines: list, i: int, indent: int, seq_ok: bool):
+    """The value of an entry whose text ended at lines[i-1]: a block on the
+    following deeper lines (or a '- ' list at the same indentation after a
+    mapping key), else null."""
+    if i < len(lines) and lines[i].indent > indent:
+        return _block(lines, i, lines[i].indent)
+    if seq_ok and i < len(lines) and lines[i].indent == indent and _is_item(lines[i].text):
+        return _block(lines, i, indent)
+    return None, i
+
+
+def _sequence(lines: list, i: int, indent: int):
+    out = []
+    while i < len(lines) and lines[i].indent == indent and _is_item(lines[i].text):
+        line = lines[i]
+        body = line.text[1:].lstrip(" ")
+        if not body:
+            node, i = _nested(lines, i + 1, indent, seq_ok=False)
+        else:
+            # The item's content starts a block at its own column: re-read
+            # the line from there.
+            lines[i] = _Line(line.no, " " * (indent + len(line.text) - len(body)) + body)
+            if _is_item(body) or _split_key(lines[i]) is not None:
+                node, i = _block(lines, i, lines[i].indent)
+            else:
+                node, i = _Scanner(body, line.no).rest(), i + 1
+        out.append(node)
+    return out, i
+
+
+def _mapping(lines: list, i: int, indent: int):
+    out = {}
+    while i < len(lines) and lines[i].indent == indent and not _is_item(lines[i].text):
+        line = lines[i]
+        entry = _split_key(line)
+        if entry is None:
+            raise YamlSubsetError(f"line {line.no}: expected 'key: value': "
+                                  f"{line.text!r}")
+        key, rest = entry
+        if rest:
+            out[key], i = _Scanner(rest, line.no).rest(), i + 1
+        else:
+            out[key], i = _nested(lines, i + 1, indent, seq_ok=True)
+    return out, i
+
+
+def parse_yaml(text: str):
+    """The document in ``text`` (a block mapping or list) as dicts, lists and
+    scalars: what ``yaml.safe_load`` gives for the subset that scene files
+    use."""
+    lines = []
+    for no, raw in enumerate(text.splitlines(), 1):
+        line = _Line(no, raw)
+        if not line.text:
+            continue
+        if line.indent == 0 and line.text in ("---", "...") or line.text.startswith("%"):
+            raise YamlSubsetError(f"line {no}: document markers and directives "
+                                  "are not supported")
+        lines.append(line)
+    if not lines:
+        return None
+    if lines[0].indent != 0:
+        raise YamlSubsetError(f"line {lines[0].no}: unexpected indentation")
+    node, i = _block(lines, 0, 0)
+    if i < len(lines):
+        raise YamlSubsetError(f"line {lines[i].no}: unexpected text")
+    return node
 
 
 def _vec(d, default=(0.0, 0.0, 0.0)) -> D.Vec3D:
@@ -167,8 +448,6 @@ def parse_scene_dict(data: dict, base_dir: str = ".") -> D.SceneDescription:
 def load_scene_description(path: str) -> D.SceneDescription:
     """Load a scene YAML file; asset paths resolve relative to the scene
     file's directory."""
-    import yaml
-
     with open(path) as f:
-        data = yaml.safe_load(f)
+        data = parse_yaml(f.read())
     return parse_scene_dict(data, base_dir=os.path.dirname(os.path.abspath(path)))

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from paths_tpu_torch.bvh.build import build_bvh
 from paths_tpu_torch.ops import sphere_traverse as ST
+from paths_tpu_torch.ops import tri_traverse as TT
 
 torch.set_num_threads(2)
 
@@ -75,3 +77,65 @@ def test_wrapper_raises_instead_of_falling_back(dev):
         ST.closest_hit_spheres(ps, nc, o, d, excl.long(), t_init)
     with pytest.raises(ValueError):
         ST.closest_hit_spheres(ps, nc, o, d, excl, t_init.cpu())
+
+
+def _mesh_and_rays(dev, n_tris, seed=0):
+    """A soup of n_tris small triangles in [-10, 10]^3 packed as the scene
+    build packs it, and N rays: half aimed at the soup, a twentieth dead,
+    exclusions, finite t_init, excl_ent and t_max (some 0)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-10, 10, (n_tris, 3))
+    v0, v1, v2 = (c + rng.uniform(-0.8, 0.8, (n_tris, 3)) for _ in range(3))
+    n = np.cross(v1 - v0, v2 - v0)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    flat = build_bvh(np.minimum(np.minimum(v0, v1), v2),
+                     np.maximum(np.maximum(v0, v1), v2))
+    v0, v1, v2, n = (a[flat.order] for a in (v0, v1, v2, n))
+    pt, n_chunks, _ = TT.pack_tris(flat, v0, v1, v2, n,
+                                   ent=np.arange(n_tris) % 17, device=dev)
+    o = rng.uniform(-14, 14, (N, 3)).astype(np.float32)
+    d = rng.normal(size=(N, 3))
+    d[: N // 2] = c[rng.integers(0, n_tris, N // 2)] - o[: N // 2]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o[::23] = 1e30  # dead lanes
+    excl = np.where(rng.uniform(size=N) < 0.2, rng.integers(0, n_tris, N), -1)
+    t_init = np.where(rng.uniform(size=N) < 0.5, 3.4e38, rng.uniform(0, 30, N))
+    excl_ent = rng.integers(-1, 17, N)
+    t_max = np.where(rng.uniform(size=N) < 0.05, 0.0, rng.uniform(0, 30, N))
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
+    return pt, n_chunks, (t(o, np.float32), t(d, np.float32),
+                          t(excl, np.int32), t(t_init, np.float32),
+                          t(excl_ent, np.int32), t(t_max, np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", [3000, 120000])  # 8 and 20 rows per chunk
+def test_tri_closest_hit_kernel_matches_plain(dev, n_tris):
+    pt, nc, (o, d, excl, t_init, _, _) = _mesh_and_rays(dev, n_tris)
+    before = TT.LAUNCHES["tri_closest_hit"]
+    got = TT.closest_hit_tris(pt, nc, o, d, excl, t_init)
+    torch.cuda.synchronize()
+    assert TT.LAUNCHES["tri_closest_hit"] == before + 1
+    want = TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] < 3.4e38).sum()) > N // 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", [3000, 120000])
+def test_tri_any_hit_kernel_matches_plain(dev, n_tris):
+    pt, nc, (o, d, excl, _, excl_ent, t_max) = _mesh_and_rays(dev, n_tris, seed=1)
+    got = TT.occludes_tris(pt, nc, o, d, excl, excl_ent, t_max)
+    want = TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max)
+    assert torch.equal(got, want)
+    assert int(got.sum()) > N // 8
+
+
+@pytest.mark.cuda
+def test_tri_wrapper_raises_instead_of_falling_back(dev):
+    pt, nc, (o, d, excl, t_init, _, _) = _mesh_and_rays(dev, 3000)
+    with pytest.raises(TypeError):
+        TT.closest_hit_tris(pt, nc, o, d, excl.long(), t_init)
+    with pytest.raises(ValueError):
+        TT.closest_hit_tris(pt, nc, o, d, excl, t_init.cpu())

@@ -1,5 +1,6 @@
 """The port stands alone: paths_tpu_torch and chip_smoke.py import neither
-JAX nor anything of the reference package paths_tpu."""
+JAX nor anything of the reference package paths_tpu (not even its jax-free
+modules), and loading a scene needs no YAML package."""
 
 import os
 import re
@@ -40,9 +41,22 @@ def _port_modules():
     return mods
 
 
+# Modules the checks must cover (the walk below finds every module; this
+# list guards against the walk silently missing the mesh path's).
+_EXPECTED = {
+    "paths_tpu_torch.native", "paths_tpu_torch.bvh.build",
+    "paths_tpu_torch.geom.triangle", "paths_tpu_torch.ops.tri_traverse",
+    "paths_tpu_torch.ops.sphere_traverse", "paths_tpu_torch.scene.models",
+    "paths_tpu_torch.scene.obj_loader", "paths_tpu_torch.scene.ply_loader",
+    "paths_tpu_torch.scene.yaml_loader", "paths_tpu_torch.scene.build",
+    "paths_tpu_torch.integrator",
+}
+
+
 def test_no_forbidden_import_lines():
     files = _port_files()
-    assert len(files) > 15
+    assert len(files) > 25
+    assert _EXPECTED <= set(_port_modules())
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -60,6 +74,23 @@ def test_importing_every_module_loads_no_jax():
         " or m == 'paths_tpu' or m.startswith('paths_tpu.'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_loading_a_mesh_scene_needs_no_yaml_package():
+    """The YAML loader has its own parser: a mesh scene loads and builds with
+    the yaml module made unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['yaml'] = None\n"
+        "from paths_tpu_torch.scene.yaml_loader import load_scene_description\n"
+        "sd = load_scene_description('scenes/doom_standin.yml')\n"
+        "assert sd.objects[0].mesh.model == 'doom', sd\n"
+        "print(sd.models)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

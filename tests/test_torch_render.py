@@ -1,11 +1,12 @@
-"""Port parity for the slice as a whole: scene build, one path_step, whole
+"""Port parity for the slices as a whole: scene build, one path_step, whole
 renders (paths_tpu_torch on the CPU, with the plain versions of the sphere
-kernels, vs paths_tpu).
+and triangle kernels, vs paths_tpu).
 
-The reference renders the lit stress scene with PATHS_TPU_FORCE_PALLAS=1, so
-its traversal runs through the Pallas sorted-walk kernels in interpret mode
-(as tests/test_force_pallas.py does); the unforced CPU path would unroll 41
-spheres and take XLA many minutes to compile.  Images are held to relative
+The reference renders the lit stress scene and the mixed sphere + mesh scene
+with PATHS_TPU_FORCE_PALLAS=1, so its traversal runs through the Pallas
+sorted-walk kernels in interpret mode (as tests/test_force_pallas.py does);
+the unforced CPU path would unroll 41 spheres and take XLA many minutes to
+compile.  Images are held to relative
 MSE < 1e-4 (the measure of tests/test_golden.py): the two packages differ
 only by float rounding (XLA contracts multiply-adds, transcendentals differ
 by an ulp), which moves a rare path decision and nothing else.
@@ -23,6 +24,7 @@ from paths_tpu import integrator as JI
 from paths_tpu import render as JR
 from paths_tpu.scene import desc as JD
 from paths_tpu.scene.build import build_scene as jax_build
+from paths_tpu.scene.stress import generate_mixed_scene as jax_mixed
 from paths_tpu.scene.stress import generate_stress_scene as jax_stress
 
 from paths_tpu_torch import camera as TC
@@ -30,7 +32,11 @@ from paths_tpu_torch import integrator as TI
 from paths_tpu_torch import render as TR
 from paths_tpu_torch.sampling import hashing as TH
 from paths_tpu_torch.scene import build as TB
-from paths_tpu_torch.scene.stress import STRESS_LIGHT, generate_lit_stress_scene
+from paths_tpu_torch.scene.stress import (
+    STRESS_LIGHT,
+    generate_lit_stress_scene,
+    generate_mixed_scene,
+)
 from paths_tpu_torch.scene.types import SceneArrays, scene_from_numpy
 from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
@@ -64,6 +70,10 @@ def _as_numpy(jscene):
             if jscene.psph is not None:
                 out["psph.tris"] = np.asarray(jscene.psph.tris)
                 out["psph.chunk_meta"] = np.asarray(jscene.psph.chunk_meta)
+        elif name == "ptris":
+            if jscene.ptris is not None:
+                for f in ("tris", "chunk_meta", "tri_ent"):
+                    out[f"ptris.{f}"] = np.asarray(getattr(jscene.ptris, f))
         else:
             out[name] = np.asarray(getattr(jscene, name))
     return out
@@ -98,6 +108,8 @@ def test_build_scene_matches_reference(lit_stress):
             g = getattr(scene.sky, name[4:])
         elif name.startswith("psph."):
             g = getattr(scene.psph, name[5:])
+        elif name.startswith("ptris."):
+            g = getattr(scene.ptris, name[6:])
         else:
             g = got[name]
         np.testing.assert_array_equal(g.numpy(), arr.astype(g.numpy().dtype),
@@ -112,9 +124,24 @@ def _lanes(W, H):
     return (pix % W).astype(np.int32), (pix // W).astype(np.int32), pix
 
 
-def test_path_step_matches_reference(lit_stress):
+@pytest.fixture(scope="module")
+def mixed(tmp_path_factory):
+    """The mixed sphere + mesh scene (40 spheres, a 128-triangle grid, a
+    sphere light): the reference's forced-Pallas build, so every kernel K1-K4
+    runs."""
+    asset_dir = str(tmp_path_factory.mktemp("mixed"))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PATHS_TPU_FORCE_PALLAS", "1")
+    try:
+        jstatic, jscene, jcam = jax_build(jax_mixed(asset_dir, n_spheres=40))
+    finally:
+        mp.undo()
+    assert jstatic.pallas_tri_chunks > 0 and jstatic.pallas_sph_chunks > 0
+    return jstatic, jscene, jcam
+
+
+def _path_step_parity(jstatic, jscene, jcam):
     """One bounce on identical state: primary rays of a 16x16 wave."""
-    (jstatic, jscene, jcam), (_, _, cam) = lit_stress
     static, scene = scene_from_numpy(dataclasses.asdict(jstatic),
                                      _as_numpy(jscene), "cpu")
     W = H = 16
@@ -145,10 +172,22 @@ def test_path_step_matches_reference(lit_stress):
             np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5,
                                        err_msg=name)
     assert got[4].numpy().sum() > 0 and got[3].numpy().max() > 0
+    return static, scene, torch.from_numpy(o), torch.from_numpy(d)
 
 
-def test_render_wave_lit_stress_matches_reference(lit_stress):
-    (jstatic, jscene, jcam), _ = lit_stress
+def test_path_step_matches_reference(lit_stress):
+    _path_step_parity(*lit_stress[0])
+
+
+def test_path_step_mixed_matches_reference(mixed):
+    static, scene, o, d = _path_step_parity(*mixed)
+    none = torch.zeros(o.shape[0], dtype=torch.int32)
+    kind = TI.intersect_brief(static, scene, o, d, none, none)[1]
+    assert int((kind == TI.KIND_TRI).sum()) > 20  # the camera sees the mesh
+
+
+def _render_wave_parity(jstatic, jscene, jcam):
+    """Two sample waves of 16x16 pixels, 3 bounces."""
     static, scene = scene_from_numpy(dataclasses.asdict(jstatic),
                                      _as_numpy(jscene), "cpu")
     static = dataclasses.replace(static, max_bounces=3)
@@ -169,6 +208,14 @@ def test_render_wave_lit_stress_matches_reference(lit_stress):
     want, got = np.stack(want), np.stack(got)
     assert np.isfinite(got).all() and got.max() > 0
     assert _rel_mse(got, want) < 1e-4
+
+
+def test_render_wave_lit_stress_matches_reference(lit_stress):
+    _render_wave_parity(*lit_stress[0])
+
+
+def test_render_wave_mixed_matches_reference(mixed):
+    _render_wave_parity(*mixed)
 
 
 def test_render_samples_equals_sum_of_waves():
@@ -210,11 +257,28 @@ def test_ct_demo_golden():
     assert _rel_mse(got, want) < 1e-4
 
 
-def test_build_rejects_meshes_and_requires_a_device():
-    sd = generate_lit_stress_scene(4)
-    sd.objects[0].shape_kind = "mesh"
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TB.build_scene(sd, device="cpu")
+def test_mixed_pallas_golden(tmp_path):
+    """tests/goldens/mixed_pallas.npz (tests/make_goldens.py: the mixed
+    scene with 40 spheres through the reference's kernels, 72x48, 2 spp,
+    max_bounces 3, seed 0): all four kernels' plain versions."""
+    want = np.load(os.path.join(REPO, "tests", "goldens", "mixed_pallas.npz"))["img"]
+    static, scene, cam = TB.build_scene(
+        generate_mixed_scene(str(tmp_path), n_spheres=40), device="cpu")
+    assert static.tri_chunks > 0 and static.sph_chunks > 0
+    static = dataclasses.replace(static, max_bounces=3)
+    W, H = 72, 48
+    got = TR.render_image(static, scene, TC.resize(cam, W, H), W, H, spp=2, seed=0)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert _rel_mse(got, want) < 1e-4
+
+
+def test_build_rejects_meshes_and_requires_a_device(tmp_path):
+    """Meshes build (since slice 2: the mixed scene's grid takes the
+    triangle kernels); without a CUDA device the default device raises."""
+    static, scene, _ = TB.build_scene(generate_mixed_scene(str(tmp_path)),
+                                      device="cpu")
+    assert static.n_tris == 128 and static.tri_chunks > 0
+    assert scene.ptris.tris.device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TB.build_scene(generate_lit_stress_scene(4))
