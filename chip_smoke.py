@@ -6,8 +6,8 @@
 Phases, one line each (any failure exits non-zero before the last line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
-     nvcc with ptxas -v) and the C++ BVH builder (csrc/bvh_builder.cc, g++),
-     all three started together, timed;
+     csrc/flat_spheres.cu, csrc/chunk_scan.cu; nvcc with ptxas -v) and the
+     C++ BVH builder (csrc/bvh_builder.cc, g++), all started together, timed;
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
      card, at the stress-500 table and a full 720x480 frame of lanes
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
@@ -21,6 +21,10 @@ Phases, one line each (any failure exits non-zero before the last line):
      The needed pairs are those chunks' slots for each such lane; the needed
      bytes are those chunks' rows and meta rows, read once, and the lanes'
      inputs and outputs;
+  3c/4c. the same for K5 (the flat kernels) on the same table and frames,
+     and for K8 and K9's sphere form on the stress-500 spheres packed at 16
+     rows per chunk; a bound belongs to the function, so K5's and K8/K9's
+     are K1/K2's (counted on the scene's 2-row chunks of the same rows);
   3b/4b. parity and timing, triangles: K3/K4 on the doom_standin table (96k
      triangles, 8 rows per chunk) and the dragon_standin table (200k, 20 rows
      per chunk).  The kernels are timed on full 720x480 frames of primary
@@ -28,25 +32,34 @@ Phases, one line each (any failure exits non-zero before the last line):
      (flat brute force, timed once) on 65,536 of those lanes -- every
      tenth-or-so primary ray and the first 32,768 incoherent rays -- where
      the bound is counted too;
+  3d/4d. the same for K7 and K9's triangle form on the doom_standin table
+     repacked at 32 rows per chunk (the same leaves), bounded as K3/K4 are,
+     on the scene's 8-row chunks;
   5. main path: each path driven with the launch counts set to 0 just before
      it and read just after: the CLI renders the 500-sphere stress scene at
      720x480, 8 spp (K1); the lit stress scene renders at 720x480, 4 spp
      (K1, K2); the CLI renders scenes/doom_standin.yml at 720x480, 4 spp and
-     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4).  Images must be
-     finite, non-negative and not all zero;
-  6. profile: one main-path tile (65,536 lanes) of the lit stress scene and
-     one of doom_standin under torch.profiler (wall vs device-busy time, the
-     kernels' share, launches per bounce); then each kernel held against its
-     plain version and timed, as in 3/4, on the inputs that tile's second
-     bounce iteration gave it;
+     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4); then, with
+     PATHS_TPU_SPH_FLAT=1, the CLI on stress-500 at 720x480, 8 spp (K5
+     closest-hit, and no K1/K2) and the lit stress scene at 720x480, 4 spp
+     (both K5 forms), each image held to its walk-route counterpart (same
+     seed) at relative MSE < 1e-4.  Images must be finite, non-negative and
+     not all zero.  K7-K9 are reached through the ops API only (phases
+     3c-4d), so their main-path launches are 0;
+  6. profile: one main-path tile (65,536 lanes) of the lit stress scene, one
+     of doom_standin and one of the lit stress scene on the flat route under
+     torch.profiler (wall vs device-busy time, the kernels' share, launches
+     per bounce); then each kernel held against its plain version and timed,
+     as in 3/4, on the inputs that tile's second bounce iteration gave it;
   7. GPU vs CPU: the mixed sphere + mesh scene (40 spheres, 128 triangles, a
-     sphere light; all four kernels) at 48x32, 2 spp, 3 bounces, rendered
-     with the kernels and with the plain versions on the CPU, must agree to
-     relative MSE < 1e-4.
+     sphere light) at 48x32, 2 spp, 3 bounces, rendered with the kernels and
+     with the plain versions on the CPU, must agree to relative MSE < 1e-4:
+     on the walk route (K1-K4) and on the flat route (K5, K3, K4).
 Then a JSON line of per-kernel results (ms, plain_ms and bound_ms at the main
-path's tile; frame_* and doom_*/dragon_* at the shapes of 4 and 4b), the
-nvidia-smi name/power line, and the final JSON status line.  Needs one CUDA
-device.
+path's tile for K1-K5; at the doom subset for K7 and K9's triangle form and
+at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
+doom_*/dragon_* at the shapes of 4, 4b and 4d), the nvidia-smi name/power
+line, and the final JSON status line.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -87,7 +100,26 @@ KERNELS = {
     "tri_any_hit": dict(
         replaces="paths_tpu/ops/sorted_traverse.py:968",
         source="paths_tpu_torch/csrc/tri_traverse.cu"),
+    "flat_sphere_closest_hit": dict(
+        replaces="paths_tpu/ops/pallas_traverse.py:1049",
+        source="paths_tpu_torch/csrc/flat_spheres.cu"),
+    "flat_sphere_any_hit": dict(
+        replaces="paths_tpu/ops/pallas_traverse.py:1049",
+        source="paths_tpu_torch/csrc/flat_spheres.cu"),
+    "scan_tri_closest_hit": dict(
+        replaces="paths_tpu/ops/pallas_traverse.py:538",
+        source="paths_tpu_torch/csrc/chunk_scan.cu"),
+    "scan_sphere_closest_hit": dict(
+        replaces="paths_tpu/ops/pallas_traverse.py:995",
+        source="paths_tpu_torch/csrc/chunk_scan.cu"),
+    "scan_tri_any_hit": dict(
+        replaces="paths_tpu/ops/pallas_traverse.py:840",
+        source="paths_tpu_torch/csrc/chunk_scan.cu"),
+    "scan_sphere_any_hit": dict(
+        replaces="paths_tpu/ops/pallas_traverse.py:854",
+        source="paths_tpu_torch/csrc/chunk_scan.cu"),
 }
+FLAT_ENV = "PATHS_TPU_SPH_FLAT"
 DOOM = os.path.join(REPO, "scenes", "doom_standin.yml")
 DRAGON = os.path.join(REPO, "scenes", "dragon_standin.yml")
 
@@ -103,41 +135,67 @@ def nvidia_smi(query: str) -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def reset_launch_counts():
+def _kernel_modules():
+    from paths_tpu_torch.ops import chunk_scan as CS
     from paths_tpu_torch.ops import sphere_traverse as ST
     from paths_tpu_torch.ops import tri_traverse as TT
 
-    ST.reset_launch_counts()
-    TT.reset_launch_counts()
+    return ST, TT, CS
+
+
+def reset_launch_counts():
+    for m in _kernel_modules():
+        m.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from paths_tpu_torch.ops import sphere_traverse as ST
-    from paths_tpu_torch.ops import tri_traverse as TT
+    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()}
 
-    return {**ST.LAUNCHES, **TT.LAUNCHES}
+
+class flat_route:
+    """Builds inside the block choose the flat sphere kernel
+    (PATHS_TPU_SPH_FLAT=1, read by the scene build)."""
+
+    def __enter__(self):
+        self.before = os.environ.get(FLAT_ENV)
+        os.environ[FLAT_ENV] = "1"
+
+    def __exit__(self, *exc):
+        if self.before is None:
+            os.environ.pop(FLAT_ENV, None)
+        else:
+            os.environ[FLAT_ENV] = self.before
 
 
 # ---------------------------------------------------------------- phase 2
 
 def build_all():
-    """Build the two CUDA libraries and the C++ BVH builder at once (one
-    compiler process each); returns {source: seconds}."""
+    """Build the four CUDA libraries and the C++ BVH builder at once (one
+    compiler process each), then bind them; returns {source: seconds}."""
+    from paths_tpu_torch import native
     from paths_tpu_torch.bvh import build as BB
-    from paths_tpu_torch.ops import sphere_traverse as ST
-    from paths_tpu_torch.ops import tri_traverse as TT
+
+    ST, TT, CS = _kernel_modules()
 
     def timed(fn):
         t = time.time()
         fn()
         return time.time() - t
 
+    def nvcc(source):
+        return lambda: native.load_library(source, native.nvcc(), native.NVCC_FLAGS,
+                                           verbose=True)
+
     jobs = {"sphere_traverse.cu": lambda: ST.build_kernels(verbose=True),
             "tri_traverse.cu": lambda: TT.build_kernels(verbose=True),
+            "flat_spheres.cu": nvcc("flat_spheres.cu"),
+            "chunk_scan.cu": nvcc("chunk_scan.cu"),
             "bvh_builder.cc": BB._native_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futures = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
-        return {name: f.result() for name, f in futures.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    CS.build_kernels()  # binds the two libraries just built
+    return built
 
 
 # ---------------------------------------------------------------- phases 3/4
@@ -292,30 +350,48 @@ def fp32_peak(device):
     return sms * 128 * mhz * 1e6, f"{sms} SMs x 128 x {mhz:.0f} MHz"
 
 
-def _family(kind):
-    from paths_tpu_torch.ops import sphere_traverse as ST
-    from paths_tpu_torch.ops import tri_traverse as TT
+def _families():
+    """kind -> (row test, closest-hit (name, wrapper, plain), any-hit (name,
+    wrapper, plain)).  Every wrapper and plain version takes (table,
+    n_chunks, o, d, excl, t_init) or (table, n_chunks, o, d, excl, excl_ent,
+    t_max); the flat kernels read table.tris only."""
+    ST, TT, CS = _kernel_modules()
+    rows_only = lambda fn: lambda tab, nc, *a: fn(tab.tris, *a)
+    sph_ch = rows_only(ST.closest_hit_spheres_plain)
+    sph_ah = rows_only(ST.occludes_spheres_plain)
+    return {
+        "sphere": ("sphere", ("sphere_closest_hit", ST.closest_hit_spheres, sph_ch),
+                   ("sphere_any_hit", ST.occludes_spheres, sph_ah)),
+        "tri": ("tri", ("tri_closest_hit", TT.closest_hit_tris, TT.closest_hit_tris_plain),
+                ("tri_any_hit", TT.occludes_tris, TT.occludes_tris_plain)),
+        "flat": ("sphere",
+                 ("flat_sphere_closest_hit", rows_only(CS.flat_closest_hit), sph_ch),
+                 ("flat_sphere_any_hit", rows_only(CS.flat_occludes), sph_ah)),
+        "scan_sphere": ("sphere",
+                        ("scan_sphere_closest_hit", CS.closest_hit_spheres, sph_ch),
+                        ("scan_sphere_any_hit", CS.occludes_spheres, sph_ah)),
+        "scan_tri": ("tri",
+                     ("scan_tri_closest_hit", CS.closest_hit_chunked,
+                      TT.closest_hit_tris_plain),
+                     ("scan_tri_any_hit", CS.occludes_chunked, TT.occludes_tris_plain)),
+    }
 
-    if kind == "sphere":
-        return (("sphere_closest_hit", ST.closest_hit_spheres,
-                 lambda tab, nc, *a: ST.closest_hit_spheres_plain(tab.tris, *a)),
-                ("sphere_any_hit", ST.occludes_spheres,
-                 lambda tab, nc, *a: ST.occludes_spheres_plain(tab.tris, *a)))
-    return (("tri_closest_hit", TT.closest_hit_tris, TT.closest_hit_tris_plain),
-            ("tri_any_hit", TT.occludes_tris, TT.occludes_tris_plain))
 
-
-def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True):
-    """Hold the closest-hit and any-hit kernels of one family ("sphere" or
-    "tri") against their plain versions on these inputs (equal outputs),
+def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True,
+            bound_on=None):
+    """Hold the closest-hit and any-hit kernels of one family (a key of
+    _families()) against their plain versions on these inputs (equal outputs),
     time both, and bound both by the work these inputs need.  ch_args = (o,
     d, excl, t_init); ah_args = (o, d, excl, excl_ent, t_max).  The plain
     versions are timed like the kernels (plain_reps) or, for the triangle
-    brute force, once.  Returns {name: dict(max_abs_err, ms, plain_ms,
-    bound_ms, bound_by)}."""
+    brute force, once.  The bound belongs to the function, not to the table
+    the kernel reads: bound_on = (table, n_chunks) counts the needed work on
+    the finest chunking of the same rows (default: the kernel's own table).
+    Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
     import torch
 
-    (ch_name, ch, ch_plain), (ah_name, ah, ah_plain) = _family(kind)
+    rows, (ch_name, ch, ch_plain), (ah_name, ah, ah_plain) = _families()[kind]
+    bound_table, bound_nc = bound_on or (table, nc)
     peak_ops, peak_txt = fp32_peak(ch_args[0].device)
     lane_in = 24 + 4 + 4  # o, d, excl, seed
 
@@ -325,7 +401,7 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True):
     occ = ah(table, nc, *ah_args)
     plain_ah_ms, want = time_once(lambda: ah_plain(table, nc, *ah_args))
     err_ah = check_equal(f"{ah_name} {label}", occ, want)
-    t_occ = nearest_occluder(kind, table, nc, *ah_args)
+    t_occ = nearest_occluder(rows, table, nc, *ah_args)
     t_max = ah_args[-1]
     if not torch.equal((t_occ < float("inf")) | (t_max == 0), occ):
         raise AssertionError(f"{ah_name} {label}: nearest occluders disagree with the flags")
@@ -341,11 +417,11 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True):
         ms = timer(lambda: run(table, nc, *args))
         if plain_reps:
             plain_ms = timer(lambda: plain(table, nc, *args))
-        pairs, table_bytes = needed_work(table.chunk_meta, nc, SLOTS_PER_ROW[kind],
-                                         args[0], args[1], answer)
+        pairs, table_bytes = needed_work(bound_table.chunk_meta, bound_nc,
+                                         SLOTS_PER_ROW[rows], args[0], args[1], answer)
         bytes_ = table_bytes + n * (lane_in + extra_in + out_bytes)
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = pairs * OPS_PER_PAIR[kind] / peak_ops * 1e3
+        t_ops = pairs * OPS_PER_PAIR[rows] / peak_ops * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=max(t_bytes, t_ops), bound_by=bound_by)
@@ -358,16 +434,23 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True):
 
 
 def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
-    """Phases 3 and 4: parity and timing of K1/K2 at the stress-500 table
-    and width x height lanes.  Returns per-kernel records."""
+    """Phases 3/4 and 3c/4c: parity and timing of K1/K2, K5 (the same
+    table) and K8/K9 (the same spheres packed at 16 rows per chunk) at the
+    stress-500 scene and width x height lanes.  All three compute one
+    function, so all three are bounded on the scene's 2-row chunks.
+    Returns per-kernel records."""
     import torch
 
-    from paths_tpu_torch.ops import sphere_traverse as ST
+    ST, _, CS = _kernel_modules()
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_stress_scene
 
     static, scene, cam = build_scene(generate_stress_scene(500), device=device)
     ps, nc = scene.psph, static.sph_chunks
+    cpu = lambda x: x.cpu().double().numpy()
+    ps16, nc16, _ = ST.pack_spheres_chunked(
+        cpu(scene.sph_center), cpu(scene.sph_radius), ent=scene.sph_ent.cpu().numpy(),
+        rows_per_chunk=CS.SPH_ROWS_PER_CHUNK, device=device)
     n = width * height
     po, pd = primary_rays(cam, width, height, device)
     o, d, excl, t_init, excl_ent, t_max = incoherent_rays(
@@ -376,76 +459,116 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
     p_excl = torch.full((n,), -1, dtype=torch.int32, device=device)
     p_t = torch.full((n,), BIG, device=device)
 
-    err = check_equal("K1 primary", ST.closest_hit_spheres(ps, nc, po, pd, p_excl, p_t),
-                      ST.closest_hit_spheres_plain(ps.tris, po, pd, p_excl, p_t))
-    err = max(err, check_equal(
-        "K2 primary", ST.occludes_spheres(ps, nc, po, pd, p_excl, excl_ent, t_max),
-        ST.occludes_spheres_plain(ps.tris, po, pd, p_excl, excl_ent, t_max)))
-    recs = measure("sphere", "incoherent frame", ps, nc, (o, d, excl, t_init),
-                   (o, d, excl, excl_ent, t_max), timer)
-    hits = int((ST.closest_hit_spheres(ps, nc, o, d, excl, t_init)[0] < BIG).sum().item())
-    occl = int(ST.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max).sum().item())
-    log(f"[parity] K1/K2 == plain at {n} lanes x {ps.tris.shape[0] * 16} slots "
-        f"(primary + incoherent rays; incoherent: {hits} hits, {occl} occluded)")
-    t_prim = timer(lambda: ST.closest_hit_spheres(ps, nc, po, pd, p_excl, p_t))
-    log(f"[timing] sphere_closest_hit on primary rays: {t_prim:.4f} ms")
-    for r in recs.values():
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+    recs = {}
+    for kind, label, table, chunks in (("sphere", "K1/K2", ps, nc),
+                                       ("flat", "K5", ps, nc),
+                                       ("scan_sphere", "K8/K9", ps16, nc16)):
+        _, (ch_name, ch, ch_plain), (ah_name, ah, ah_plain) = _families()[kind]
+        err = check_equal(f"{ch_name} primary", ch(table, chunks, po, pd, p_excl, p_t),
+                          ch_plain(table, chunks, po, pd, p_excl, p_t))
+        err = max(err, check_equal(
+            f"{ah_name} primary", ah(table, chunks, po, pd, p_excl, excl_ent, t_max),
+            ah_plain(table, chunks, po, pd, p_excl, excl_ent, t_max)))
+        fam = measure(kind, "incoherent frame", table, chunks, (o, d, excl, t_init),
+                      (o, d, excl, excl_ent, t_max), timer, bound_on=(ps, nc))
+        hits = int((ch(table, chunks, o, d, excl, t_init)[0] < BIG).sum().item())
+        occl = int(ah(table, chunks, o, d, excl, excl_ent, t_max).sum().item())
+        log(f"[parity] {label} == plain at {n} lanes x {table.tris.shape[0] * 16} "
+            f"slots, {chunks} chunks of {int(table.chunk_meta[0, 7].item())} rows "
+            f"(primary + incoherent rays; incoherent: {hits} hits, {occl} occluded)")
+        t_prim = timer(lambda: ch(table, chunks, po, pd, p_excl, p_t))
+        log(f"[timing] {ch_name} on primary rays: {t_prim:.4f} ms")
+        for r in fam.values():
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        recs.update(fam)
     return recs
 
 
+def repack_tris(scene, rows_per_chunk, device):
+    """The scene's triangle table repacked at rows_per_chunk rows per chunk,
+    over the same leaves (one table row each, read back from the table's
+    gids) and the scene's BVH-ordered triangles.  Returns (PackedTris,
+    n_chunks)."""
+    import types
+
+    import numpy as np
+
+    from paths_tpu_torch.ops import tri_traverse as TT
+
+    gid = scene.ptris.tris.cpu().reshape(-1, TT.PACK_LEAF, TT.TRI_STRIDE)[:, :, 12]
+    gid = gid.numpy().astype(np.int64)
+    count = (gid >= 0).sum(1)
+    leaves = count > 0
+    flat = types.SimpleNamespace(prim_count=count[leaves], prim_start=gid[leaves, 0])
+    f64 = lambda x: x.cpu().double().numpy()
+    pt, nc = TT.pack_chunked(flat, f64(scene.tri_v0), f64(scene.tri_v1),
+                             f64(scene.tri_v2), f64(scene.tri_n),
+                             ent=scene.tri_ent.cpu().numpy(), rows_per_chunk=rows_per_chunk)
+    return TT.PackedTris(*(x.to(device) for x in pt)), nc
+
+
 def tri_kernel_phases(device, scene_path, label, width=720, height=480,
-                      timer=time_ms):
+                      timer=time_ms, scan=False):
     """Phases 3b and 4b for one mesh scene: K3/K4 timed on a full frame of
     primary rays and one of incoherent rays, held equal to their plain
     versions and bounded on SUBSET of those lanes (every (n / (SUBSET/2))-th
     primary ray and the first SUBSET/2 incoherent rays; the primary lanes'
-    any-hit queries take the incoherent set's excl_ent and t_max).  Returns
-    per-kernel records at the subset, with frame_ms added."""
+    any-hit queries take the incoherent set's excl_ent and t_max).  With
+    scan, phases 3d/4d: the same for K7/K9 on the table repacked at 32 rows
+    per chunk, bounded as K3/K4 are, on the scene's own chunks of the same
+    leaves.  Returns per-kernel records at the subset, with frame_ms
+    added."""
     import torch
 
-    from paths_tpu_torch.ops import tri_traverse as TT
+    from paths_tpu_torch.ops import chunk_scan as CS
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
     t = time.time()
     static, scene, cam = build_scene(load_scene_description(scene_path), device=device)
-    pt, nc = scene.ptris, static.tri_chunks
-    log(f"[build] {label}: {static.n_tris} triangles, {nc} chunks of "
-        f"{static.tri_rows} rows, table {pt.tris.shape[0]} rows; scene built in "
-        f"{time.time() - t:.1f} s")
+    tables = [("tri", "K3/K4", scene.ptris, static.tri_chunks, static.tri_rows)]
+    log(f"[build] {label}: {static.n_tris} triangles, {static.tri_chunks} chunks of "
+        f"{static.tri_rows} rows, table {scene.ptris.tris.shape[0]} rows; scene "
+        f"built in {time.time() - t:.1f} s")
+    if scan:
+        pt, nc = repack_tris(scene, CS.TRI_ROWS_PER_CHUNK, device)
+        tables.append(("scan_tri", "K7/K9", pt, nc, CS.TRI_ROWS_PER_CHUNK))
+        log(f"[build] {label} repacked: {nc} chunks of {CS.TRI_ROWS_PER_CHUNK} rows, "
+            f"table {pt.tris.shape[0]} rows")
     n = width * height
-    meta = pt.chunk_meta[:nc]
+    meta = scene.ptris.chunk_meta[:static.tri_chunks]
     po, pd = primary_rays(cam, width, height, device)
     o, d, excl, t_init, excl_ent, t_max = incoherent_rays(
         n, meta[:, 0:3].amin(0), meta[:, 3:6].amax(0), static.n_tris,
         static.n_entities, device)
     p_excl = torch.full((n,), -1, dtype=torch.int32, device=device)
     p_t = torch.full((n,), BIG, device=device)
-
-    frame = {
-        "primary": timer(lambda: TT.closest_hit_tris(pt, nc, po, pd, p_excl, p_t)),
-        "tri_closest_hit": timer(lambda: TT.closest_hit_tris(pt, nc, o, d, excl, t_init)),
-        "tri_any_hit": timer(lambda: TT.occludes_tris(pt, nc, o, d, excl, excl_ent, t_max)),
-    }
-    hits = int((TT.closest_hit_tris(pt, nc, po, pd, p_excl, p_t)[0] < BIG).sum().item())
-    log(f"[timing] {label} frame, {n} lanes: tri_closest_hit primary "
-        f"{frame['primary']:.3f} ms ({hits} hits), incoherent "
-        f"{frame['tri_closest_hit']:.3f} ms; tri_any_hit incoherent "
-        f"{frame['tri_any_hit']:.3f} ms")
-
     half = SUBSET // 2
     sel = torch.arange(half, device=device) * (n // half)
     cat = lambda a, b: torch.cat([a[sel], b[:half]]).contiguous()
     so, sd_, sx = cat(po, o), cat(pd, d), cat(p_excl, excl)
-    recs = measure("tri", f"{label} subset", pt, nc, (so, sd_, sx, cat(p_t, t_init)),
-                   (so, sd_, sx, torch.cat([excl_ent[half:SUBSET], excl_ent[:half]]),
-                    torch.cat([t_max[half:SUBSET], t_max[:half]])),
-                   timer, plain_reps=False)
-    log(f"[parity] {label}: K3/K4 == plain at {SUBSET} lanes x "
-        f"{pt.tris.shape[0] * 8} slots")
-    for name, r in recs.items():
-        r["frame_ms"] = frame[name]
+
+    recs = {}
+    for kind, kernels, pt, nc, rows in tables:
+        _, (ch_name, ch, _), (ah_name, ah, _) = _families()[kind]
+        frame = {
+            "primary": timer(lambda: ch(pt, nc, po, pd, p_excl, p_t)),
+            ch_name: timer(lambda: ch(pt, nc, o, d, excl, t_init)),
+            ah_name: timer(lambda: ah(pt, nc, o, d, excl, excl_ent, t_max)),
+        }
+        hits = int((ch(pt, nc, po, pd, p_excl, p_t)[0] < BIG).sum().item())
+        log(f"[timing] {label} frame ({rows}-row chunks), {n} lanes: {ch_name} "
+            f"primary {frame['primary']:.3f} ms ({hits} hits), incoherent "
+            f"{frame[ch_name]:.3f} ms; {ah_name} incoherent {frame[ah_name]:.3f} ms")
+        fam = measure(kind, f"{label} subset", pt, nc, (so, sd_, sx, cat(p_t, t_init)),
+                      (so, sd_, sx, torch.cat([excl_ent[half:SUBSET], excl_ent[:half]]),
+                       torch.cat([t_max[half:SUBSET], t_max[:half]])),
+                      timer, plain_reps=False, bound_on=(scene.ptris, static.tri_chunks))
+        log(f"[parity] {label}: {kernels} == plain at {SUBSET} lanes x "
+            f"{pt.tris.shape[0] * 8} slots ({rows}-row chunks)")
+        for name, r in fam.items():
+            r["frame_ms"] = frame[name]
+        recs.update(fam)
     return recs
 
 
@@ -462,24 +585,36 @@ def check_image(name, img):
         raise AssertionError(f"{name}: image is all zero")
 
 
-def drive(name, run, kernels):
+def drive(name, run, kernels, absent=()):
     """Drive one path with the launch counts set to 0 just before it and read
-    just after; each of its kernels must have launched.  Returns the
-    counts."""
+    just after; each of `kernels` must have launched, and none of `absent`.
+    Returns (counts, what run returned)."""
     reset_launch_counts()
-    run()
+    out = run()
     counts = launch_counts()
     log(f"[main] {name}: kernel launches {counts}")
     for k in kernels:
         if counts[k] <= 0:
             raise AssertionError(f"{k} was not launched on the {name} path")
-    return counts
+    for k in absent:
+        if counts[k] != 0:
+            raise AssertionError(f"{k} was launched on the {name} path")
+    return counts, out
+
+
+def rel_mse(a, b):
+    import numpy as np
+
+    return float(np.mean((a - b) ** 2) / (np.mean(b ** 2) + 1e-12))
 
 
 def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     """Phase 5: the CLI on the stress scene, the lit stress scene through the
-    library entry points, then the CLI on the two mesh scenes.  Returns the
-    summed launch counts of the four paths."""
+    library entry points, the CLI on the two mesh scenes, then the stress
+    and lit stress scenes again on the flat route, each image held to its
+    walk-route counterpart.  Returns the summed launch counts of the six
+    paths."""
+    import numpy as np
     import torch
 
     from paths_tpu_torch import camera as C
@@ -504,30 +639,50 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
         log(f"[main] {name} {width}x{height} {n_spp} spp: {dt:.2f} s "
             f"({width * height * n_spp / dt / 1e6:.3f} M pixel-samples/s incl. "
             f"scene build)")
+        return img
 
-    def lit():
+    def lit(name):
         static, scene, cam = build_scene(generate_lit_stress_scene(500), device=device)
         t = time.time()
         img = render_image(static, scene, C.resize(cam, width, height), width,
                            height, spp=spp[1], seed=0)
         dt = time.time() - t
-        check_image("lit stress-500", img)
-        log(f"[main] lit stress-500 {width}x{height} {spp[1]} spp: {dt:.2f} s "
-            f"({width * height * spp[1] / dt / 1e6:.3f} M pixel-samples/s)")
+        check_image(name, img)
+        log(f"[main] {name} {width}x{height} {spp[1]} spp: {dt:.2f} s "
+            f"({width * height * spp[1] / dt / 1e6:.3f} M pixel-samples/s; "
+            f"sph_flat={static.sph_flat})")
+        return img
 
-    total = {}
-    for counts in (
+    walk = ["sphere_closest_hit", "sphere_any_hit"]
+    runs = [
         drive("stress-500", lambda: timed_cli(
             "stress-500", cli_args("stress.png", spp[0]), spp[0]),
             ["sphere_closest_hit"]),
-        drive("lit stress-500", lit, ["sphere_closest_hit", "sphere_any_hit"]),
+        drive("lit stress-500", lambda: lit("lit stress-500"), walk),
         drive("doom_standin", lambda: timed_cli(
             "doom_standin", [DOOM] + cli_args("doom.png", spp[2]), spp[2]),
             ["tri_closest_hit", "tri_any_hit"]),
         drive("dragon_standin", lambda: timed_cli(
             "dragon_standin", [DRAGON] + cli_args("dragon.png", spp[3]), spp[3]),
             ["tri_closest_hit", "tri_any_hit"]),
-    ):
+    ]
+    with flat_route():
+        runs += [
+            drive("stress-500 flat", lambda: timed_cli(
+                "stress-500 flat", cli_args("stress_flat.png", spp[0]), spp[0]),
+                ["flat_sphere_closest_hit"], absent=walk),
+            drive("lit stress-500 flat", lambda: lit("lit stress-500 flat"),
+                  ["flat_sphere_closest_hit", "flat_sphere_any_hit"], absent=walk),
+        ]
+    for (_, walk_img), (_, flat_img), name in zip(runs[:2], runs[4:], ("stress-500", "lit stress-500")):
+        rel = rel_mse(flat_img, walk_img)
+        diff = float(np.abs(flat_img - walk_img).max())
+        log(f"[main] {name}: flat route vs walk route, relative MSE {rel:.3e}, "
+            f"largest absolute difference {diff:.3e}")
+        if not rel < 1e-4:
+            raise AssertionError(f"{name}: flat vs walk relative MSE {rel:.3e} >= 1e-4")
+    total = {}
+    for counts, _ in runs:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     return total
@@ -535,20 +690,20 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
 
 def capture_inputs(run, module, names, call_index=1):
     """Run run() with the kernel wrappers `names` of `module` spied on.
-    Returns, per wrapper name, copies of the arguments of its call number
-    call_index (0-based)."""
+    Returns, per wrapper name, the arguments of its call number call_index
+    (0-based), tensors cloned."""
     import torch
 
     origs = {n: getattr(module, n) for n in names}
-    calls = {n: 0 for n in names}
+    calls = {}
     saved = {}
+    copy = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
 
     def spy(name):
         def call(*args):
-            if calls[name] == call_index:
-                saved[name] = [a.clone() if isinstance(a, torch.Tensor) else a
-                               for a in args]
-            calls[name] += 1
+            if calls.get(name, 0) == call_index:
+                saved[name] = [copy(a) for a in args]
+            calls[name] = calls.get(name, 0) + 1
             return origs[name](*args)
         return call
 
@@ -559,8 +714,6 @@ def capture_inputs(run, module, names, call_index=1):
     finally:
         for n in names:
             setattr(module, n, origs[n])
-    if len(saved) < len(names):
-        raise AssertionError(f"wrapper calls {calls}: fewer than {call_index + 1}")
     return saved
 
 
@@ -577,15 +730,16 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     from torch.profiler import ProfilerActivity, profile
 
     from paths_tpu_torch import camera as C
-    from paths_tpu_torch.ops import sphere_traverse as ST
-    from paths_tpu_torch.ops import tri_traverse as TT
     from paths_tpu_torch.render import render_samples, tiled_pixel_order
 
+    ST, TT, CS = _kernel_modules()
     module, names, ch_name, src = {
         "sphere": (ST, ("closest_hit_spheres", "occludes_spheres"),
                    "sphere_closest_hit", "sphere_traverse"),
         "tri": (TT, ("closest_hit_tris", "occludes_tris"), "tri_closest_hit",
                 "tri_traverse"),
+        "flat": (CS, ("flat_closest_hit", "flat_occludes"), "flat_sphere_closest_hit",
+                 "flat_spheres"),
     }[kind]
     static, scene, cam = make_scene()
     cam = C.resize(cam, width, height)
@@ -628,17 +782,20 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
             f"({n_launch / max(iters, 1):.0f} per iteration); top: "
             + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
 
-    ch_in, ah_in = cap[names[0]], cap[names[1]]
-    return measure(kind, f"{label} main-path tile", ch_in[0], ch_in[1],
-                   tuple(ch_in[2:]), tuple(ah_in[2:]), timer,
-                   plain_reps=kind == "sphere")
+    if set(cap) != set(names):
+        raise AssertionError(f"kernel calls captured: {sorted(cap)}")
+    ch_a, ah_a = cap[names[0]], cap[names[1]]
+    if kind == "flat":  # (rows, o, d, ...): the bound counts K1's chunks
+        table, nc, ch_args, ah_args = scene.psph, static.sph_chunks, ch_a[1:], ah_a[1:]
+    else:  # (table, n_chunks, o, d, ...)
+        table, nc, ch_args, ah_args = ch_a[0], ch_a[1], ch_a[2:], ah_a[2:]
+    return measure(kind, f"{label} main-path tile", table, nc, ch_args, ah_args,
+                   timer, plain_reps=kind != "tri")
 
 
-def gpu_vs_cpu(device):
+def gpu_vs_cpu(device, flat=False):
     """Phase 7: the whole path with kernels vs with the plain versions, on
-    the mixed scene (all four kernels)."""
-    import numpy as np
-
+    the mixed scene: K1-K4, or on the flat route (flat=True) K5, K3, K4."""
     from paths_tpu_torch import camera as C
     from paths_tpu_torch.render import render_image
     from paths_tpu_torch.scene.build import build_scene
@@ -647,17 +804,24 @@ def gpu_vs_cpu(device):
     imgs = []
     with tempfile.TemporaryDirectory() as tmp:
         for dev in (device, "cpu"):
-            static, scene, cam = build_scene(generate_mixed_scene(tmp, n_spheres=40),
-                                             device=dev)
+            if flat:
+                with flat_route():
+                    static, scene, cam = build_scene(
+                        generate_mixed_scene(tmp, n_spheres=40), device=dev)
+            else:
+                static, scene, cam = build_scene(
+                    generate_mixed_scene(tmp, n_spheres=40), device=dev)
             assert static.sph_chunks > 0 and static.tri_chunks > 0
+            assert static.sph_flat == flat
             static = dataclasses.replace(static, max_bounces=3)
             imgs.append(render_image(static, scene, C.resize(cam, 48, 32), 48, 32,
                                      spp=2, seed=0))
-    a, b = imgs
-    rel = float(np.mean((a - b) ** 2) / (np.mean(b ** 2) + 1e-12))
+    rel = rel_mse(*imgs)
+    route = "flat" if flat else "walk"
     if not rel < 1e-4:
-        raise AssertionError(f"GPU vs CPU relative MSE {rel:.3e} >= 1e-4")
-    log(f"[gpu-vs-cpu] mixed scene 48x32 2 spp: relative MSE {rel:.3e} (< 1e-4)")
+        raise AssertionError(f"GPU vs CPU ({route} route) relative MSE {rel:.3e} >= 1e-4")
+    log(f"[gpu-vs-cpu] mixed scene 48x32 2 spp, {route} route: relative MSE "
+        f"{rel:.3e} (< 1e-4)")
 
 
 def main() -> int:
@@ -682,12 +846,12 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
 
     frame = sphere_kernel_phases(device)
-    mesh = {"doom": tri_kernel_phases(device, DOOM, "doom_standin"),
+    mesh = {"doom": tri_kernel_phases(device, DOOM, "doom_standin", scan=True),
             "dragon": tri_kernel_phases(device, DRAGON, "dragon_standin")}
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = main_path(device, tmp)
-    log(f"[main] kernel launches over the four paths: {launches}")
+    log(f"[main] kernel launches over the six paths: {launches}")
 
     tile = where_time_goes(
         device, "sphere", "lit stress-500",
@@ -695,24 +859,34 @@ def main() -> int:
     tile.update(where_time_goes(
         device, "tri", "doom_standin",
         lambda: build_scene(load_scene_description(DOOM), device=device)))
+
+    def flat_lit():
+        with flat_route():
+            return build_scene(generate_lit_stress_scene(500), device=device)
+
+    tile.update(where_time_goes(device, "flat", "lit stress-500 flat route", flat_lit))
     gpu_vs_cpu(device)
+    gpu_vs_cpu(device, flat=True)
 
     # ms, plain_ms and bound_ms are at the main path's shape (one tile of
-    # bounce and shadow rays); frame_* at a full incoherent frame (spheres)
-    # and doom_*/dragon_* at the 65,536-lane subsets (triangles; their
-    # frame_ms at the full incoherent frame).
+    # bounce and shadow rays) for K1-K5; K7-K9 are off the main path, so
+    # theirs are at the doom subset (triangles) and the incoherent stress-500
+    # frame (spheres).  frame_* at a full incoherent frame (spheres) and
+    # doom_*/dragon_* at the 65,536-lane subsets (triangles; their frame_ms
+    # at the full incoherent frame).
     recs = []
     for name in KERNELS:
+        at = tile.get(name) or (mesh["doom"] if name.startswith("scan_tri")
+                                else frame)[name]
         r = dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
-                 max_abs_err=tile[name]["max_abs_err"], ms=tile[name]["ms"],
-                 plain_ms=tile[name]["plain_ms"], bound_ms=tile[name]["bound_ms"],
-                 bound_by=tile[name]["bound_by"], library_ms=None)
-        if name.startswith("sphere"):
+                 **{k: at[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by")}, library_ms=None)
+        if name in frame:
             r["max_abs_err"] = max(r["max_abs_err"], frame[name]["max_abs_err"])
             r.update(frame_ms=frame[name]["ms"], frame_plain_ms=frame[name]["plain_ms"],
                      frame_bound_ms=frame[name]["bound_ms"])
-        else:
-            for m, rec in mesh.items():
+        for m, rec in mesh.items():
+            if name in rec:
                 r["max_abs_err"] = max(r["max_abs_err"], rec[name]["max_abs_err"])
                 r.update({f"{m}_{k}": rec[name][k] for k in
                           ("ms", "plain_ms", "bound_ms", "bound_by", "frame_ms")})

@@ -66,8 +66,10 @@ def main(argv=None):
     if args.size:
         width, height = (int(v) for v in args.size.lower().split("x"))
         cam = C.resize(cam, width, height)
+    route = ("flat" if static.sph_flat else "walk") if static.sph_chunks else "scan"
     print(f"[{time.time()-t0:6.2f}s] scene built on {device}: "
-          f"{static.n_spheres} spheres ({static.sph_chunks} kernel chunks), "
+          f"{static.n_spheres} spheres ({static.sph_chunks} kernel chunks, "
+          f"{route} route), "
           f"{static.n_tris} triangles ({static.tri_chunks} kernel chunks of "
           f"{static.tri_rows} rows), {static.n_lights} lights")
 

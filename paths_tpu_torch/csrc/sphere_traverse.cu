@@ -14,16 +14,10 @@
 //   meta (C, 128) f32 per chunk: [lo.xyz hi.xyz row0 nrows] (sphere AABB).
 //
 // Per slot (strict comparisons; the first qualifying slot in visit order wins
-// a tie):
-//   oc = o - c, b = d.oc, c2 = oc.oc - r^2, disc = b^2 - c2, with exactly the
-//   three fused multiply-adds the reference kernel gets when XLA compiles it
-//   for the CPU (LLVM contraction, verified bit for bit in interpret mode):
-//     b = fma(dz, ocz, fma(dx, ocx, dy*ocy)),
-//     c2 = fma(ocz, ocz, fma(ocx, ocx, ocy*ocy)) - r^2,  disc = fma(b, b, -c2);
-//   root = sqrt(max(disc, 0)), d1 = -b + root, d2 = -b - root,
-//   t = d2 > 0 ? d2 : d1,
-//   qualifies iff disc >= 0 && d1 >= 0 && t < t_best && gid != excl && gid >= 0
-//   (any-hit adds ent != excl_ent).
+// a tie): the sphere test of row_tests.cuh::sphere_slot, with the three fused
+// multiply-adds the reference kernel gets when XLA compiles it for the CPU;
+// qualifies iff the sphere is met ahead && t < t_best && gid != excl &&
+// gid >= 0 (any-hit adds ent != excl_ent).
 // A lane with o.x > 1e29 is dead: a miss / not occluded.
 // Closest-hit writes t_best < t_init ? t_best : BIG, and gid/ent (0 on a miss).
 // Any-hit collapses t_best to 0 on the first qualifying slot and reports
@@ -52,44 +46,25 @@
 
 #include <cuda_runtime.h>
 
+#include "row_tests.cuh"
+
 namespace {
 
+using paths_rt::crosses_box;
+using paths_rt::kBig;
+using paths_rt::kDead;
+using paths_rt::kRowFloats;
+using paths_rt::sphere_slot;
+
 constexpr int kThreads = 256;
-constexpr int kRowFloats = 128;  // floats per table row and per meta row
 constexpr int kSlotsPerRow = 16;
 constexpr int kSlotStride = 8;
-constexpr float kBig = 3.4e38f;
-constexpr float kDead = 1e29f;
-constexpr float kBoxPad = 1e-4f;
 
 struct Hit {
   float t;
   int gid;
   int ent;
 };
-
-// Does the ray (o, 1/d) cross the chunk's padded AABB before t_best?  An axis
-// whose slab distance is NaN (d == 0 with the origin exactly on a padded
-// plane) does not constrain: conservative.
-__device__ __forceinline__ bool crosses_chunk(const float* __restrict__ m,
-                                              const float o[3],
-                                              const float inv[3],
-                                              float t_best) {
-  float tmin = -kBig;
-  float tmax = kBig;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    const float lo = m[ax];
-    const float hi = m[3 + ax];
-    const float pad = kBoxPad * (fabsf(lo) + fabsf(hi) + (hi - lo)) + 1e-6f;
-    const float t0 = (lo - pad - o[ax]) * inv[ax];
-    const float t1 = (hi + pad - o[ax]) * inv[ax];
-    if (isnan(t0) || isnan(t1)) continue;
-    tmin = fmaxf(tmin, fminf(t0, t1));
-    tmax = fminf(tmax, fmaxf(t0, t1));
-  }
-  return tmin < tmax && tmin < t_best && tmax > 0.0f;
-}
 
 template <bool AnyHit>
 __device__ __forceinline__ Hit walk(const float* __restrict__ table,
@@ -102,7 +77,7 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ table,
   const float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
   for (int c = 0; c < n_chunks; ++c) {
     const float* m = meta + static_cast<size_t>(c) * kRowFloats;
-    if (!crosses_chunk(m, o, inv, h.t)) continue;
+    if (!crosses_box(m, o, inv, h.t)) continue;
     const int row0 = static_cast<int>(m[6]);
     const int row1 = row0 + static_cast<int>(m[7]);
     for (int r = row0; r < row1; ++r) {
@@ -110,19 +85,10 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ table,
 #pragma unroll
       for (int k = 0; k < kSlotsPerRow; ++k) {
         const float* s = row + k * kSlotStride;
-        const float ocx = o[0] - s[0];
-        const float ocy = o[1] - s[1];
-        const float ocz = o[2] - s[2];
-        const float b = fmaf(d[2], ocz, fmaf(d[0], ocx, d[1] * ocy));
-        const float c2 = fmaf(ocz, ocz, fmaf(ocx, ocx, ocy * ocy)) - s[3];
-        const float disc = fmaf(b, b, -c2);
-        const float root = sqrtf(fmaxf(disc, 0.0f));
-        const float d1 = -b + root;
-        const float d2 = -b - root;
-        const float t = d2 > 0.0f ? d2 : d1;
+        float t;
+        const bool met = sphere_slot(s[0], s[1], s[2], s[3], o, d, t);
         const int gid = static_cast<int>(s[4]);
-        const bool ok = disc >= 0.0f && d1 >= 0.0f && t < h.t &&
-                        gid != excl && gid >= 0;
+        const bool ok = met && t < h.t && gid != excl && gid >= 0;
         if constexpr (AnyHit) {
           if (ok && static_cast<int>(s[5]) != excl_ent) {
             h.t = 0.0f;

@@ -16,20 +16,11 @@
 //   meta (C, 128) f32 per chunk: [lo.xyz hi.xyz row0 nrows ...] (the chunk's
 //     triangle box; 8 or 20 rows per chunk).
 //
-// Per slot, with o' = o - 0.5f * (lo + hi) (f32, as the pack-time centre;
-// the product by 0.5 is exact, so no rounding depends on how it is formed),
-// and exactly the fused multiply-adds the reference kernel gets when XLA
-// compiles it for the CPU (LLVM contraction, verified bit for bit in
-// interpret mode):
-//   dot(a, b) = fma(a.z, b.z, fma(a.x, b.x, a.y * b.y)),
-//   t = (dd - dot(n, o')) / dot(n, d),
-//   bx = fma(t, dot(g1, d), c1 + dot(g1, o')),  by likewise with g2, c2,
-//   bz = (1 - bx) - by,
-//   qualifies iff t >= 0 && bx >= 0 && by >= 0 && bz >= 0 && t < t_best &&
-//   gid != excl  (any-hit adds ent != excl_ent).
-// The reference tests min(min(t, bx), min(by, bz)) >= 0 with a min that
-// propagates NaN; fminf does not, so the test is written as four comparisons,
-// which is the same predicate.  Strict comparisons: the first qualifying slot
+// Per slot, with o' = o - 0.5f * (lo + hi) (f32, as the pack-time centre):
+// the plane-form test of row_tests.cuh::tri_slot, with the fourteen fused
+// multiply-adds the reference kernel gets when XLA compiles it for the CPU;
+// qualifies iff it passes && t < t_best && gid != excl (any-hit adds
+// ent != excl_ent).  Strict comparisons: the first qualifying slot
 // in table order wins a tie.  A lane with o.x > 1e29 is dead: a miss / not
 // occluded.  Closest-hit writes t_best < t_init ? t_best : BIG, and gid/ent
 // (0 on a miss).  Any-hit collapses t_best to 0 on the first qualifying slot
@@ -56,49 +47,24 @@
 
 #include <cuda_runtime.h>
 
+#include "row_tests.cuh"
+
 namespace {
 
+using paths_rt::crosses_box;
+using paths_rt::kBig;
+using paths_rt::kDead;
+using paths_rt::kRowFloats;
+using paths_rt::tri_slot;
+
 constexpr int kThreads = 256;
-constexpr int kRowFloats = 128;  // floats per table row and per meta row
 constexpr int kSlotsPerRow = 8;  // of 16 floats: four float4 per slot
-constexpr float kBig = 3.4e38f;
-constexpr float kDead = 1e29f;
-constexpr float kBoxPad = 1e-4f;
 
 struct Hit {
   float t;
   int gid;
   int ent;
 };
-
-// Does the ray (o, 1/d) cross the chunk's padded box before t_best?  An axis
-// whose slab distance is NaN (d == 0 with the origin exactly on a padded
-// plane) does not constrain: conservative.
-__device__ __forceinline__ bool crosses_chunk(const float* __restrict__ m,
-                                              const float o[3],
-                                              const float inv[3],
-                                              float t_best) {
-  float tmin = -kBig;
-  float tmax = kBig;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    const float lo = m[ax];
-    const float hi = m[3 + ax];
-    const float pad = kBoxPad * (fabsf(lo) + fabsf(hi) + (hi - lo)) + 1e-6f;
-    const float t0 = (lo - pad - o[ax]) * inv[ax];
-    const float t1 = (hi + pad - o[ax]) * inv[ax];
-    if (isnan(t0) || isnan(t1)) continue;
-    tmin = fmaxf(tmin, fminf(t0, t1));
-    tmax = fminf(tmax, fmaxf(t0, t1));
-  }
-  return tmin < tmax && tmin < t_best && tmax > 0.0f;
-}
-
-// The reference's contracted three-term dot product.
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return fmaf(az, bz, fmaf(ax, bx, ay * by));
-}
 
 template <bool AnyHit>
 __device__ __forceinline__ Hit walk(const float* __restrict__ tris,
@@ -111,7 +77,7 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ tris,
   const float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
   for (int c = 0; c < n_chunks; ++c) {
     const float* m = meta + static_cast<size_t>(c) * kRowFloats;
-    if (!crosses_chunk(m, o, inv, h.t)) continue;
+    if (!crosses_box(m, o, inv, h.t)) continue;
     const float os[3] = {o[0] - 0.5f * (m[0] + m[3]), o[1] - 0.5f * (m[1] + m[4]),
                          o[2] - 0.5f * (m[2] + m[5])};
     const int row0 = static_cast<int>(m[6]);
@@ -125,16 +91,10 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ tris,
         const float4 b = __ldg(row + 4 * k + 1);  // g1.xyz, c1
         const float4 e = __ldg(row + 4 * k + 2);  // g2.xyz, c2
         const float4 g = __ldg(row + 4 * k + 3);  // gid, 0, ent, 0
-        const float cos_t = dot3(a.x, a.y, a.z, d[0], d[1], d[2]);
-        const float t = (a.w - dot3(a.x, a.y, a.z, os[0], os[1], os[2])) / cos_t;
-        const float bx = fmaf(t, dot3(b.x, b.y, b.z, d[0], d[1], d[2]),
-                              b.w + dot3(b.x, b.y, b.z, os[0], os[1], os[2]));
-        const float by = fmaf(t, dot3(e.x, e.y, e.z, d[0], d[1], d[2]),
-                              e.w + dot3(e.x, e.y, e.z, os[0], os[1], os[2]));
-        const float bz = (1.0f - bx) - by;
+        float t;
+        const bool met = tri_slot(a, b, e, os, d, t);
         const int gid = static_cast<int>(g.x);
-        const bool ok = t >= 0.0f && bx >= 0.0f && by >= 0.0f && bz >= 0.0f &&
-                        t < h.t && gid != excl;
+        const bool ok = met && t < h.t && gid != excl;
         if constexpr (AnyHit) {
           if (ok && static_cast<int>(g.z) != excl_ent) {
             h.t = 0.0f;

@@ -13,8 +13,10 @@ bounce, dim), see ``sampling/hashing.py``.
 
 Closest-hit and shadow queries over the small spheres and the triangles go
 to the traversal kernels (``ops/sphere_traverse.py``,
-``ops/tri_traverse.py``) when the scene packed them; big and far spheres,
-and scenes with at most 32 small spheres, take the double-single test in
+``ops/tri_traverse.py``; the small spheres to the flat kernel of
+``ops/chunk_scan.py`` when the build chose it) when the scene packed them;
+big and far spheres, and scenes with at most 32 small spheres, take the
+double-single test in
 ``geom/sphere.py``; meshes of at most 64 triangles take an unrolled scan of
 ``geom/triangle.py``.
 """
@@ -29,6 +31,7 @@ from paths_tpu_torch import sky as SK
 from paths_tpu_torch.geom import sphere as GS
 from paths_tpu_torch.geom import triangle as GT
 from paths_tpu_torch.math import vec
+from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.sampling import hashing as H
@@ -88,10 +91,14 @@ def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
                                    excl_kind, excl_idx, t_best, i_best)
     e_best = scene.sph_ent[i_best]
     excl_i = torch.where(excl_kind == KIND_SPHERE, excl_idx, -1).to(torch.int32)
-    tk, ik, ek = ST.closest_hit_spheres(
-        scene.psph, static.sph_chunks, o.contiguous(), d.contiguous(),
-        excl_i, t_best.contiguous(),
-    )
+    if static.sph_flat:
+        tk, ik, ek = CS.flat_closest_hit(scene.psph.tris, o.contiguous(),
+                                         d.contiguous(), excl_i, t_best.contiguous())
+    else:
+        tk, ik, ek = ST.closest_hit_spheres(
+            scene.psph, static.sph_chunks, o.contiguous(), d.contiguous(),
+            excl_i, t_best.contiguous(),
+        )
     better = tk < t_best
     return (torch.where(better, tk, t_best), torch.where(better, ik, i_best),
             torch.where(better, ek, e_best))
@@ -178,11 +185,16 @@ def occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
                          & (scene.sph_ent[s] != excl_ent))
         if static.sph_chunks:
             excl_i = torch.where(excl_s, excl_idx, -1).to(torch.int32)
-            o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o)
-            occ = occ | ST.occludes_spheres(
-                scene.psph, static.sph_chunks, o_eff.contiguous(), d.contiguous(),
-                excl_i, excl_ent.contiguous(), t_max.contiguous(),
-            )
+            o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o).contiguous()
+            if static.sph_flat:
+                occ = occ | CS.flat_occludes(
+                    scene.psph.tris, o_eff, d.contiguous(), excl_i,
+                    excl_ent.contiguous(), t_max.contiguous())
+            else:
+                occ = occ | ST.occludes_spheres(
+                    scene.psph, static.sph_chunks, o_eff, d.contiguous(),
+                    excl_i, excl_ent.contiguous(), t_max.contiguous(),
+                )
     if static.has_tris:
         # Lanes already occluded are pushed out (dead: not tested again).
         excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)

@@ -4,10 +4,11 @@ C++ BVH builder with ``g++``.
 
 Each library is compiled once per version of its source and flags into
 ``build/paths_tpu_torch/`` beside the package (the file name carries a hash
-of both, and for ``-march=native`` of the host CPU's target, so an edited
-source is rebuilt and a library built for another CPU is not loaded).  A build writes a temporary file
-and renames it into place, so processes that build at the same time never
-load a partial library.  A failed build raises.
+of both, of the kernels' shared headers ``csrc/*.cuh``, and for
+``-march=native`` of the host CPU's target, so an edited source or header is
+rebuilt and a library built for another CPU is not loaded).  A build writes
+a temporary file and renames it into place, so processes that build at the
+same time never load a partial library.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -68,8 +69,10 @@ def load_library(source: str, compiler: str, flags: list[str],
     shared library (unless this version is already built) and load it.
     verbose prints the compiler's messages (``-Xptxas=-v`` for nvcc)."""
     src = CSRC / source
-    text = src.read_bytes()
-    key = text + " ".join(flags).encode()
+    # A CUDA source's key covers the headers the kernels share (csrc/*.cuh).
+    headers = sorted(CSRC.glob("*.cuh")) if src.suffix == ".cu" else []
+    key = b"".join(p.read_bytes() for p in [src, *headers])
+    key += " ".join(flags).encode()
     if "-march=native" in flags:
         key += _native_target(compiler)
     tag = hashlib.sha256(key).hexdigest()[:16]

@@ -38,7 +38,9 @@ from paths_tpu_torch.math import vec
 
 SPH_STRIDE = 8  # floats per sphere slot: [cx cy cz r^2 gid ent 0 0]
 SPH_PER_ROW = 128 // SPH_STRIDE  # 16
-# Rows per chunk (2 rows = 32 sphere slots), as the reference's sorted walk.
+# Rows per chunk of the scene build's table (2 rows = 32 sphere slots), as
+# the reference's sorted walk; the linear scan's tables take 16
+# (ops/chunk_scan.py).
 SPH_ROWS_PER_CHUNK = 2
 BIG = 3.4e38
 DEAD = 1e29  # a lane whose origin x is past this is dead (a miss)
@@ -58,9 +60,9 @@ class PackedSpheres(NamedTuple):
 
 
 def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
-                         device="cpu"):
-    """Pack spheres (numpy (S,3), (S,)) into chunks of SPH_ROWS_PER_CHUNK
-    rows.  Slot layout
+                         rows_per_chunk: int = SPH_ROWS_PER_CHUNK, device="cpu"):
+    """Pack spheres (numpy (S,3), (S,)) into chunks of rows_per_chunk rows.
+    Slot layout
     [cx cy cz r^2 gid ent 0 0]; empty slots have r^2 = -1 and gid = -1.
     Spheres are morton-sorted so chunk AABBs stay tight; the gid written is
     gid0 + position in the sorted order.  Returns (PackedSpheres, n_chunks,
@@ -86,10 +88,10 @@ def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
     c, r, ent = c[order], r[order], ent[order]
 
     R = -(-S // SPH_PER_ROW)
-    n_chunks = -(-R // SPH_ROWS_PER_CHUNK)
+    n_chunks = -(-R // rows_per_chunk)
     # Every row, padding included, gets the canonical empty fill: an
     # all-zero row would act as r=0 spheres at the origin with gid 0.
-    rpad = -(-max(n_chunks * SPH_ROWS_PER_CHUNK, 1) // 8) * 8
+    rpad = -(-max(n_chunks * rows_per_chunk, 1) // 8) * 8
     rows = np.zeros((rpad, 128), np.float32)
     rows[:, 3::SPH_STRIDE] = -1.0  # r^2 = -1 in empty slots
     rows[:, 4::SPH_STRIDE] = -1.0
@@ -103,13 +105,13 @@ def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
 
     meta = np.zeros((n_chunks, 128), np.float32)
     for k in range(n_chunks):
-        i0 = k * SPH_ROWS_PER_CHUNK * SPH_PER_ROW
-        i1 = min(i0 + SPH_ROWS_PER_CHUNK * SPH_PER_ROW, S)
+        i0 = k * rows_per_chunk * SPH_PER_ROW
+        i1 = min(i0 + rows_per_chunk * SPH_PER_ROW, S)
         cc, rr = c[i0:i1], r[i0:i1, None]
         meta[k, 0:3] = (cc - rr).min(0)
         meta[k, 3:6] = (cc + rr).max(0)
-        meta[k, 6] = k * SPH_ROWS_PER_CHUNK
-        meta[k, 7] = min((k + 1) * SPH_ROWS_PER_CHUNK, R) - k * SPH_ROWS_PER_CHUNK
+        meta[k, 6] = k * rows_per_chunk
+        meta[k, 7] = min((k + 1) * rows_per_chunk, R) - k * rows_per_chunk
     meta = np.pad(meta, ((0, (-len(meta)) % 8), (0, 0)))  # 8-row multiple
     packed = PackedSpheres(tris=torch.from_numpy(rows).to(device),
                            chunk_meta=torch.from_numpy(meta).to(device))

@@ -12,11 +12,13 @@ Spheres split as in the reference: big or far spheres (radius or any centre
 coordinate past 1e3, the radius-1e6 ground planes) stay on the
 double-single path; when more than 32 small spheres remain they are
 morton-packed for the traversal kernels and the scene arrays are put in the
-packed order, so sphere ids equal the reference package's.  Meshes of more
-than 64 triangles in all are BVH-ordered and packed for the triangle kernels
-(the reference's forced-kernel build); at most 64 take the unrolled scan in
-the integrator.  Neither choice depends on the device: on the CPU the kernel
-wrappers run their plain versions.
+packed order, so sphere ids equal the reference package's.  With
+``PATHS_TPU_SPH_FLAT=1`` (read once, here) and a table of at most
+``SPH_FLAT_MAX_ROWS`` rows they take the flat kernel instead of the walk.
+Meshes of more than 64 triangles in all are BVH-ordered and packed for the
+triangle kernels (the reference's forced-kernel build); at most 64 take the
+unrolled scan in the integrator.  No choice depends on the device: on the
+CPU the kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from paths_tpu_torch import sky as SK
 from paths_tpu_torch.bvh.build import build_bvh
 from paths_tpu_torch.camera import make_camera
 from paths_tpu_torch.math import matrix as mat
+from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene import desc as D
@@ -212,6 +215,7 @@ def build_scene(sd: D.SceneDescription, device=None):
     psph = None
     sph_chunks = 0
     n_sph_big = 0
+    sph_flat = False
     if n_spheres:
         sphc = np.stack(sph_center)
         sphr = np.array(sph_radius, np.float64)
@@ -231,6 +235,9 @@ def build_scene(sd: D.SceneDescription, device=None):
             sphc[n_sph_big:] = sphc[tail]
             sphr[n_sph_big:] = sphr[tail]
             sphe[n_sph_big:] = sphe[tail]
+            # The opt-in flat sphere kernel, as the reference resolves it.
+            sph_flat = (os.environ.get("PATHS_TPU_SPH_FLAT") == "1"
+                        and psph.tris.shape[0] <= CS.SPH_FLAT_MAX_ROWS)
     else:
         sphc = np.zeros((1, 3)); sphr = np.zeros(1); sphe = np.zeros(1, np.int64)
 
@@ -317,6 +324,7 @@ def build_scene(sd: D.SceneDescription, device=None):
         has_fresnel=has_fresnel,
         sph_chunks=sph_chunks,
         n_sph_big=n_sph_big,
+        sph_flat=sph_flat,
         n_tris=n_tris,
         tri_chunks=tri_chunks,
         tri_rows=tri_rows,

@@ -107,6 +107,10 @@ class SceneStatic:
     # Spheres [0, n_sph_big) are big or far and stay on the double-single
     # path even when the kernel runs.
     n_sph_big: int = 0
+    # The small spheres take the flat kernel (K5, ops/chunk_scan.py) instead
+    # of the chunk walk (K1/K2): PATHS_TPU_SPH_FLAT=1 at build and a table of
+    # at most SPH_FLAT_MAX_ROWS rows.
+    sph_flat: bool = False
     n_tris: int = 0
     # Chunks of the packed triangle table (0: at most 64 triangles, the
     # unrolled scan) and its rows per chunk (8, or 20 for large tables).
@@ -126,6 +130,7 @@ class SceneStatic:
 
 # Reference-package field names that differ from the port's.
 _STATIC_RENAMES = {"pallas_sph_chunks": "sph_chunks",
+                   "pallas_sph_flat": "sph_flat",
                    "pallas_tri_chunks": "tri_chunks",
                    "pallas_tri_rows": "tri_rows"}
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from paths_tpu_torch.bvh.build import build_bvh
+from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 
@@ -27,12 +28,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _scene_and_rays(dev, seed=0):
+def _scene_and_rays(dev, seed=0, rows=ST.SPH_ROWS_PER_CHUNK):
     rng = np.random.default_rng(seed)
     centers = rng.uniform(-10, 10, (S, 3))
     radii = rng.uniform(0.1, 1.5, S)
     ps, n_chunks, _ = ST.pack_spheres_chunked(
-        centers, radii, ent=np.arange(S) % 17, gid0=2, device=dev)
+        centers, radii, ent=np.arange(S) % 17, gid0=2, rows_per_chunk=rows,
+        device=dev)
     o = rng.uniform(-14, 14, (N, 3)).astype(np.float32)
     d = rng.normal(size=(N, 3))
     d[: N // 2] = rng.uniform(-8, 8, (N // 2, 3)) - o[: N // 2]
@@ -79,10 +81,11 @@ def test_wrapper_raises_instead_of_falling_back(dev):
         ST.closest_hit_spheres(ps, nc, o, d, excl, t_init.cpu())
 
 
-def _mesh_and_rays(dev, n_tris, seed=0):
+def _mesh_and_rays(dev, n_tris, seed=0, rows=None):
     """A soup of n_tris small triangles in [-10, 10]^3 packed as the scene
-    build packs it, and N rays: half aimed at the soup, a twentieth dead,
-    exclusions, finite t_init, excl_ent and t_max (some 0)."""
+    build packs it (or at `rows` rows per chunk), and N rays: half aimed at
+    the soup, a twentieth dead, exclusions, finite t_init, excl_ent and t_max
+    (some 0)."""
     rng = np.random.default_rng(seed)
     c = rng.uniform(-10, 10, (n_tris, 3))
     v0, v1, v2 = (c + rng.uniform(-0.8, 0.8, (n_tris, 3)) for _ in range(3))
@@ -91,8 +94,13 @@ def _mesh_and_rays(dev, n_tris, seed=0):
     flat = build_bvh(np.minimum(np.minimum(v0, v1), v2),
                      np.maximum(np.maximum(v0, v1), v2))
     v0, v1, v2, n = (a[flat.order] for a in (v0, v1, v2, n))
-    pt, n_chunks, _ = TT.pack_tris(flat, v0, v1, v2, n,
-                                   ent=np.arange(n_tris) % 17, device=dev)
+    if rows is None:
+        pt, n_chunks, _ = TT.pack_tris(flat, v0, v1, v2, n,
+                                       ent=np.arange(n_tris) % 17, device=dev)
+    else:
+        pt, n_chunks = TT.pack_chunked(flat, v0, v1, v2, n,
+                                       ent=np.arange(n_tris) % 17, rows_per_chunk=rows)
+        pt = TT.PackedTris(*(x.to(dev) for x in pt))
     o = rng.uniform(-14, 14, (N, 3)).astype(np.float32)
     d = rng.normal(size=(N, 3))
     d[: N // 2] = c[rng.integers(0, n_tris, N // 2)] - o[: N // 2]
@@ -139,3 +147,83 @@ def test_tri_wrapper_raises_instead_of_falling_back(dev):
         TT.closest_hit_tris(pt, nc, o, d, excl.long(), t_init)
     with pytest.raises(ValueError):
         TT.closest_hit_tris(pt, nc, o, d, excl, t_init.cpu())
+
+
+# ---- K5 (flat spheres) and K7-K9 (linear chunk scan) ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "any"])
+def test_flat_kernel_matches_plain(dev, anyhit):
+    ps, _, (o, d, excl, t_init, excl_ent, t_max) = _scene_and_rays(dev, seed=2)
+    assert ps.tris.shape[0] <= CS.SPH_FLAT_MAX_ROWS
+    name = "flat_sphere_any_hit" if anyhit else "flat_sphere_closest_hit"
+    before = CS.LAUNCHES[name]
+    if anyhit:
+        got = CS.flat_occludes(ps.tris, o, d, excl, excl_ent, t_max)
+        want = ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max)
+    else:
+        got = CS.flat_closest_hit(ps.tris, o, d, excl, t_init)
+        want = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)
+    torch.cuda.synchronize()
+    assert CS.LAUNCHES[name] == before + 1
+    if anyhit:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_scan_sphere_kernels_match_plain(dev):
+    ps, nc, (o, d, excl, t_init, excl_ent, t_max) = _scene_and_rays(
+        dev, seed=3, rows=CS.SPH_ROWS_PER_CHUNK)
+    got = CS.closest_hit_spheres(ps, nc, o, d, excl, t_init)
+    for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    occ = CS.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
+    assert int((got[0] < 3.4e38).sum()) > N // 8 and int(occ.sum()) > N // 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", [3000, 120000])
+def test_scan_tri_kernels_match_plain(dev, n_tris):
+    pt, nc, (o, d, excl, t_init, excl_ent, t_max) = _mesh_and_rays(
+        dev, n_tris, seed=4, rows=CS.TRI_ROWS_PER_CHUNK)
+    before = CS.LAUNCHES["scan_tri_closest_hit"]
+    got = CS.closest_hit_chunked(pt, nc, o, d, excl, t_init)
+    torch.cuda.synchronize()
+    assert CS.LAUNCHES["scan_tri_closest_hit"] == before + 1
+    for g, w in zip(got, TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    occ = CS.occludes_chunked(pt, nc, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max))
+    assert int((got[0] < 3.4e38).sum()) > N // 8 and int(occ.sum()) > N // 8
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_instead_of_falling_back(dev):
+    ps, nc, (o, d, excl, t_init, excl_ent, t_max) = _scene_and_rays(dev)
+    with pytest.raises(TypeError):
+        CS.flat_closest_hit(ps.tris, o, d, excl.long(), t_init)
+    with pytest.raises(ValueError):
+        CS.flat_closest_hit(ps.tris, o, d, excl, t_init.cpu())
+    with pytest.raises(ValueError, match="rows"):
+        CS.flat_closest_hit(torch.zeros(72, 128, device=dev), o, d, excl, t_init)
+    with pytest.raises(ValueError):
+        CS.flat_closest_hit(ps.tris, o[:, :2].contiguous(), d, excl, t_init)
+    with pytest.raises(TypeError):
+        CS.flat_occludes(ps.tris, o, d, excl, excl_ent.float(), t_max)
+    with pytest.raises(TypeError):
+        CS.occludes_spheres(ps, nc, o, d, excl, excl_ent.float(), t_max)
+    with pytest.raises(ValueError):
+        CS.closest_hit_spheres(ps, nc, o, d.cpu(), excl, t_init)
+    with pytest.raises(ValueError):
+        CS.closest_hit_spheres(ps, nc, o, d, excl[1:], t_init)
+    pt, tc, (o, d, excl, t_init, excl_ent, t_max) = _mesh_and_rays(
+        dev, 3000, rows=CS.TRI_ROWS_PER_CHUNK)
+    with pytest.raises(TypeError):
+        CS.closest_hit_chunked(pt, tc, o, d, excl.long(), t_init)
+    with pytest.raises(ValueError):
+        CS.occludes_chunked(pt, tc, o, d, excl, excl_ent, t_max.cpu())
+    with pytest.raises(ValueError):
+        CS.occludes_chunked(pt, pt.chunk_meta.shape[0] + 1, o, d, excl, excl_ent, t_max)

@@ -46,7 +46,8 @@ def _port_modules():
 _EXPECTED = {
     "paths_tpu_torch.native", "paths_tpu_torch.bvh.build",
     "paths_tpu_torch.geom.triangle", "paths_tpu_torch.ops.tri_traverse",
-    "paths_tpu_torch.ops.sphere_traverse", "paths_tpu_torch.scene.models",
+    "paths_tpu_torch.ops.sphere_traverse", "paths_tpu_torch.ops.chunk_scan",
+    "paths_tpu_torch.scene.models",
     "paths_tpu_torch.scene.obj_loader", "paths_tpu_torch.scene.ply_loader",
     "paths_tpu_torch.scene.yaml_loader", "paths_tpu_torch.scene.build",
     "paths_tpu_torch.integrator",

@@ -6,8 +6,10 @@ The reference renders the lit stress scene and the mixed sphere + mesh scene
 with PATHS_TPU_FORCE_PALLAS=1, so its traversal runs through the Pallas
 sorted-walk kernels in interpret mode (as tests/test_force_pallas.py does);
 the unforced CPU path would unroll 41 spheres and take XLA many minutes to
-compile.  Images are held to relative
-MSE < 1e-4 (the measure of tests/test_golden.py): the two packages differ
+compile.  The flat-sphere route (PATHS_TPU_SPH_FLAT=1, K5) is held the same
+way on the mixed scene, and its build choice against the reference's.
+Images are held to relative MSE < 1e-4 (the measure of
+tests/test_golden.py): the two packages differ
 only by float rounding (XLA contracts multiply-adds, transcendentals differ
 by an ulp), which moves a rare path decision and nothing else.
 """
@@ -30,12 +32,15 @@ from paths_tpu.scene.stress import generate_stress_scene as jax_stress
 from paths_tpu_torch import camera as TC
 from paths_tpu_torch import integrator as TI
 from paths_tpu_torch import render as TR
+from paths_tpu_torch.ops import chunk_scan as TCS
+from paths_tpu_torch.ops import sphere_traverse as TST
 from paths_tpu_torch.sampling import hashing as TH
 from paths_tpu_torch.scene import build as TB
 from paths_tpu_torch.scene.stress import (
     STRESS_LIGHT,
     generate_lit_stress_scene,
     generate_mixed_scene,
+    generate_stress_scene,
 )
 from paths_tpu_torch.scene.types import SceneArrays, scene_from_numpy
 from paths_tpu_torch.scene.yaml_loader import load_scene_description
@@ -186,8 +191,8 @@ def test_path_step_mixed_matches_reference(mixed):
     assert int((kind == TI.KIND_TRI).sum()) > 20  # the camera sees the mesh
 
 
-def _render_wave_parity(jstatic, jscene, jcam):
-    """Two sample waves of 16x16 pixels, 3 bounces."""
+def _render_wave_parity(jstatic, jscene, jcam, n_waves=2):
+    """n_waves sample waves of 16x16 pixels, 3 bounces."""
     static, scene = scene_from_numpy(dataclasses.asdict(jstatic),
                                      _as_numpy(jscene), "cpu")
     static = dataclasses.replace(static, max_bounces=3)
@@ -197,7 +202,7 @@ def _render_wave_parity(jstatic, jscene, jcam):
     jcam16 = JR.C.resize(jcam, W, H)
     cam = TC.resize(TC.Camera(*[torch.tensor(np.asarray(x)) for x in jcam]), W, H)
     want, got = [], []
-    for s in range(2):
+    for s in range(n_waves):
         sid = np.full(W * H, s, np.uint32)
         want.append(np.asarray(JR.render_wave(
             jstatic, jscene, jcam16, jnp.asarray(px), jnp.asarray(py),
@@ -216,6 +221,77 @@ def test_render_wave_lit_stress_matches_reference(lit_stress):
 
 def test_render_wave_mixed_matches_reference(mixed):
     _render_wave_parity(*mixed)
+
+
+# ---- the flat sphere route (K5): PATHS_TPU_SPH_FLAT=1 at build ----
+
+@pytest.mark.parametrize("n_spheres,rows,flat", [(500, 32, True), (1100, 72, False)])
+def test_flat_route_build_matches_reference(monkeypatch, n_spheres, rows, flat):
+    """The flat kernel is chosen as the reference chooses it: a table of at
+    most 64 rows (stress-500: 32) takes it, a larger one (72) keeps the
+    walk."""
+    monkeypatch.setenv("PATHS_TPU_FORCE_PALLAS", "1")
+    monkeypatch.setenv("PATHS_TPU_SPH_FLAT", "1")
+    jstatic, jscene, _ = jax_build(jax_stress(n_spheres, seed=0))
+    static, scene, _ = TB.build_scene(generate_stress_scene(n_spheres, seed=0),
+                                      device="cpu")
+    assert scene.psph.tris.shape[0] == np.asarray(jscene.psph.tris).shape[0] == rows
+    assert static.sph_flat == jstatic.pallas_sph_flat == flat
+    monkeypatch.delenv("PATHS_TPU_SPH_FLAT")
+    assert not TB.build_scene(generate_stress_scene(n_spheres, seed=0),
+                              device="cpu")[0].sph_flat
+
+
+@pytest.fixture(scope="module")
+def mixed_flat(tmp_path_factory):
+    """The mixed scene built by the reference with the Pallas path forced
+    and the flat sphere kernel chosen (PATHS_TPU_SPH_FLAT=1)."""
+    asset_dir = str(tmp_path_factory.mktemp("mixed_flat"))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PATHS_TPU_FORCE_PALLAS", "1")
+    mp.setenv("PATHS_TPU_SPH_FLAT", "1")
+    try:
+        jstatic, jscene, jcam = jax_build(jax_mixed(asset_dir, n_spheres=40))
+    finally:
+        mp.undo()
+    assert jstatic.pallas_sph_flat and jstatic.pallas_tri_chunks > 0
+    return jstatic, jscene, jcam
+
+
+def _flat_route_only(monkeypatch):
+    """Count the flat wrappers' calls by form; fail on any call of the
+    walk's sphere wrappers."""
+    calls = {"closest": 0, "any": 0}
+
+    def spy(form, wrapper):
+        def call(*args):
+            calls[form] += 1
+            return wrapper(*args)
+        return call
+
+    def walk(*args, **kw):
+        raise AssertionError("the walk's sphere kernel was called on the flat route")
+
+    monkeypatch.setattr(TCS, "flat_closest_hit", spy("closest", TCS.flat_closest_hit))
+    monkeypatch.setattr(TCS, "flat_occludes", spy("any", TCS.flat_occludes))
+    monkeypatch.setattr(TST, "closest_hit_spheres", walk)
+    monkeypatch.setattr(TST, "occludes_spheres", walk)
+    return calls
+
+
+def test_path_step_mixed_flat_matches_reference(mixed_flat, monkeypatch):
+    calls = _flat_route_only(monkeypatch)
+    static = _path_step_parity(*mixed_flat)[0]
+    assert static.sph_flat
+    assert calls["closest"] > 0 and calls["any"] > 0
+
+
+def test_render_wave_mixed_flat_matches_reference(mixed_flat, monkeypatch):
+    """One wave: each eager wave of the reference re-lowers its interpret-mode
+    flat kernel, and a second wave would run the same kernels as the first."""
+    calls = _flat_route_only(monkeypatch)
+    _render_wave_parity(*mixed_flat, n_waves=1)
+    assert calls["closest"] > 0 and calls["any"] > 0
 
 
 def test_render_samples_equals_sum_of_waves():
