@@ -6,8 +6,9 @@
 Phases, one line each (any failure exits non-zero before the last line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
-     csrc/flat_spheres.cu, csrc/chunk_scan.cu; nvcc with ptxas -v) and the
-     C++ BVH builder (csrc/bvh_builder.cc, g++), all started together, timed;
+     csrc/flat_spheres.cu, csrc/chunk_scan.cu, csrc/packet_bvh.cu; nvcc with
+     ptxas -v) and the C++ BVH builder (csrc/bvh_builder.cc, g++), all
+     started together, timed;
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
      card, at the stress-500 table and a full 720x480 frame of lanes
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
@@ -33,8 +34,15 @@ Phases, one line each (any failure exits non-zero before the last line):
      tenth-or-so primary ray and the first 32,768 incoherent rays -- where
      the bound is counted too;
   3d/4d. the same for K7 and K9's triangle form on the doom_standin table
-     repacked at 32 rows per chunk (the same leaves), bounded as K3/K4 are,
-     on the scene's 8-row chunks;
+     repacked at 32 rows per chunk (the same leaves);
+  3e/4e. K6 on the BVH route's table of each mesh scene (the same BVH and
+     leaves): held equal to its plain version on 65,536 primary rays and on
+     65,536 incoherent rays (t_init 0 where t_max is 0), timed there and on
+     both full frames, with K3 timed on the same rays beside it.  Every
+     triangle kernel is bounded on the BVH's leaves of at most 8 triangles,
+     the finest division of the same rows: the needed pairs (the 8 slots of
+     each leaf a lane enters before its answer) and the needed bytes (those
+     leaves' rows and the compact nodes a lane enters, read once);
   5. main path: each path driven with the launch counts set to 0 just before
      it and read just after: the CLI renders the 500-sphere stress scene at
      720x480, 8 spp (K1); the lit stress scene renders at 720x480, 4 spp
@@ -43,22 +51,29 @@ Phases, one line each (any failure exits non-zero before the last line):
      PATHS_TPU_SPH_FLAT=1, the CLI on stress-500 at 720x480, 8 spp (K5
      closest-hit, and no K1/K2) and the lit stress scene at 720x480, 4 spp
      (both K5 forms), each image held to its walk-route counterpart (same
-     seed) at relative MSE < 1e-4.  Images must be finite, non-negative and
-     not all zero.  K7-K9 are reached through the ops API only (phases
-     3c-4d), so their main-path launches are 0;
-  6. profile: one main-path tile (65,536 lanes) of the lit stress scene, one
-     of doom_standin and one of the lit stress scene on the flat route under
-     torch.profiler (wall vs device-busy time, the kernels' share, launches
-     per bounce); then each kernel held against its plain version and timed,
-     as in 3/4, on the inputs that tile's second bounce iteration gave it;
-  7. GPU vs CPU: the mixed sphere + mesh scene (40 spheres, 128 triangles, a
+     seed) at relative MSE < 1e-4; then doom_standin (4 spp) and
+     dragon_standin (2 spp) at 720x480 on the BVH route
+     (build_scene(..., bvh_threshold=32768), render_image): K6 launched,
+     K3/K4 not, each image compared with its kernel-route counterpart (same
+     seed; relative MSE below BVH_VS_KERNEL_REL_MSE).  Images must be
+     finite, non-negative and not all zero.  K7-K9 are reached through the
+     ops API only (phases 3c-4d), so their main-path launches are 0;
+  6. profile: one main-path tile (65,536 lanes) of the lit stress scene, of
+     doom_standin, of the lit stress scene on the flat route and of
+     doom_standin on the BVH route under torch.profiler (wall vs device-busy
+     time, the kernels' share, launches per bounce iteration); then each
+     kernel held against its plain version and timed, as in 3/4, on the
+     inputs that tile's second bounce iteration gave it;
+  7. GPU vs CPU: the mixed sphere + mesh scene (a 128-triangle grid, a
      sphere light) at 48x32, 2 spp, 3 bounces, rendered with the kernels and
      with the plain versions on the CPU, must agree to relative MSE < 1e-4:
-     on the walk route (K1-K4) and on the flat route (K5, K3, K4).
+     with 40 spheres on the walk route (K1-K4) and on the flat route (K5,
+     K3, K4), and with 8 spheres on the BVH route (bvh_threshold=64: K6 on
+     the card, bvh/traverse.py's walk on the CPU).
 Then a JSON line of per-kernel results (ms, plain_ms and bound_ms at the main
-path's tile for K1-K5; at the doom subset for K7 and K9's triangle form and
+path's tile for K1-K6; at the doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
-doom_*/dragon_* at the shapes of 4, 4b and 4d), the nvidia-smi name/power
+doom_*/dragon_* at the shapes of 4, 4b, 4d and 4e), the nvidia-smi name/power
 line, and the final JSON status line.  Needs one CUDA device.
 """
 
@@ -78,14 +93,38 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# FP32 operations per (ray, slot) test, counted from the row tests: a sphere
-# slot ~25; a triangle slot 32 (six three-term dot products of one multiply
-# and two FMAs, t's subtraction and division, bx/by's add and FMA, bz's two
-# subtractions, six comparisons).
-OPS_PER_PAIR = {"sphere": 25, "tri": 32}
+# FP32 operations per (ray, slot) test, counted from the row tests, an FMA
+# as one: a sphere slot ~25; a plane-form triangle slot 32 (six three-term
+# dot products of one multiply and two FMAs, t's subtraction and division,
+# bx/by's add and FMA, bz's two subtractions, six comparisons); a
+# vertex-layout slot (K6) 53 (two dot products, 6; the cos == 0 test and
+# select, 2; t's subtraction and division, 2; p's three FMAs; nine
+# subtractions for pa, pb, pc; two n.(a x b) of three multiplies, three FMAs
+# and a dot product, 18; bx, by's multiplies, 2; bz's subtractions, 2; nine
+# comparisons).
+OPS_PER_PAIR = {"sphere": 25, "tri": 32, "vtri": 53}
 SLOTS_PER_ROW = {"sphere": 16, "tri": 8}
+ROW_BYTES = 512  # a table, meta or node row of 128 floats
+SLOT_BYTES = 64  # a triangle slot of 16 floats (both triangle layouts)
+NODE_BYTES = 40  # a node's box, links, first primitive and count (10 floats)
 BIG = 3.4e38
 SUBSET = 65536  # lanes held against the plain triangle versions
+BVH_THRESHOLD = 32768  # build_scene's bvh_threshold for the BVH route (the reference's default)
+# A mesh scene's BVH-route image against its kernel-route image (same seed):
+# K6 and K3/K4 round differently, so a path may part at a grazing hit; the
+# repo's image tolerance.
+BVH_VS_KERNEL_REL_MSE = 1e-4
+# K6 against K3 on the same rays: two row tests (vertex layout, plane form)
+# that round differently, so a lane may part at a triangle's edge: at most
+# this share of lanes may part on hit or on id.  Where both hit the same
+# triangle, t is held to the rounding of one ray-plane intersection, t =
+# (n.v0 - n.o) / n.d in f32: about 4 units of 2^-24 (|o|_1 + |v0|_1 + t) /
+# |n.d| to first order in each function (the f32 normal, the three-term
+# dots, the subtraction and the division), so 8 between two; the gate
+# allows twice that.  t relative to itself is no measure: the numerator
+# cancels where the origin is far from a short hit.
+K6_VS_K3_PART = 1e-4
+K6_VS_K3_T_UNITS = 16
 
 KERNELS = {
     "sphere_closest_hit": dict(
@@ -118,6 +157,9 @@ KERNELS = {
     "scan_sphere_any_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:854",
         source="paths_tpu_torch/csrc/chunk_scan.cu"),
+    "packet_closest_hit": dict(
+        replaces="paths_tpu/ops/pallas_traverse.py:1094",
+        source="paths_tpu_torch/csrc/packet_bvh.cu"),
 }
 FLAT_ENV = "PATHS_TPU_SPH_FLAT"
 DOOM = os.path.join(REPO, "scenes", "doom_standin.yml")
@@ -137,10 +179,11 @@ def nvidia_smi(query: str) -> str:
 
 def _kernel_modules():
     from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import packet_traverse as PK
     from paths_tpu_torch.ops import sphere_traverse as ST
     from paths_tpu_torch.ops import tri_traverse as TT
 
-    return ST, TT, CS
+    return ST, TT, CS, PK
 
 
 def reset_launch_counts():
@@ -170,12 +213,12 @@ class flat_route:
 # ---------------------------------------------------------------- phase 2
 
 def build_all():
-    """Build the four CUDA libraries and the C++ BVH builder at once (one
+    """Build the five CUDA libraries and the C++ BVH builder at once (one
     compiler process each), then bind them; returns {source: seconds}."""
     from paths_tpu_torch import native
     from paths_tpu_torch.bvh import build as BB
 
-    ST, TT, CS = _kernel_modules()
+    ST, TT, CS, PK = _kernel_modules()
 
     def timed(fn):
         t = time.time()
@@ -190,6 +233,7 @@ def build_all():
             "tri_traverse.cu": lambda: TT.build_kernels(verbose=True),
             "flat_spheres.cu": nvcc("flat_spheres.cu"),
             "chunk_scan.cu": nvcc("chunk_scan.cu"),
+            "packet_bvh.cu": lambda: PK.build_kernels(verbose=True),
             "bvh_builder.cc": BB._native_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futures = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
@@ -239,22 +283,20 @@ def incoherent_rays(n, lo, hi, n_prims, n_entities, device, t_span=None, seed=1)
     return [x.to(device).contiguous() for x in (o, d, excl, t_init, excl_ent, t_max)]
 
 
-def needed_work(meta, n_chunks, slots_per_row, o, d, t_answer, step=4096):
-    """(pairs, table_bytes): the (ray, slot) tests and the table bytes the
-    function needs for these rays.  A chunk is needed when a live ray enters
-    its box before t_answer, the distance at which the lane's answer is
-    settled (its closest hit, its nearest occluder, or the end of its
-    segment); a walk in front-to-back chunk order that stops there tests no
-    fewer, and lanes with t_answer <= 0 need none.  The pairs are the slots
-    of each needed chunk, once per lane that needs it; the bytes are the
-    rows of the needed chunks and their meta rows, each read once (512 B a
-    row)."""
+def needed_work(lo, hi, slots, o, d, t_answer):
+    """(pairs, entered): the (ray, slot) tests the function needs for these
+    rays over boxes [lo, hi] (B, 3) holding `slots` (B,) slots each.  A box
+    is needed by a lane when the lane's ray enters it before t_answer, the
+    distance at which the lane's answer is settled (its closest hit, its
+    nearest occluder, or the end of its segment); a front-to-back walk that
+    stops there tests no fewer, and dead lanes and lanes with t_answer <= 0
+    need none.  pairs counts each needed box's slots once per lane that
+    needs it; entered (B,) marks the boxes some lane needs."""
     import torch
 
-    meta = meta[:n_chunks]
-    lo, hi, nrows = meta[:, 0:3], meta[:, 3:6], meta[:, 7]
     total = 0
-    entered = torch.zeros(n_chunks, dtype=torch.bool, device=meta.device)
+    entered = torch.zeros(lo.shape[0], dtype=torch.bool, device=lo.device)
+    step = max(256, (1 << 23) // max(lo.shape[0], 1))
     for a in range(0, o.shape[0], step):
         oo, dd, tt = o[a:a + step], d[a:a + step], t_answer[a:a + step]
         inv = 1.0 / dd
@@ -264,10 +306,51 @@ def needed_work(meta, n_chunks, slots_per_row, o, d, t_answer, step=4096):
         tmax = torch.nan_to_num(torch.maximum(t0, t1), nan=BIG).amin(2)
         cross = (tmin < tmax) & (tmin < tt[:, None]) & (tmax > 0)
         cross &= ((oo[:, 0] <= 1e29) & (tt > 0))[:, None]
-        total += int((cross.double() @ nrows.double()).sum().item()) * slots_per_row
+        total += int((cross.double() @ slots.double()).sum().item())
         entered |= cross.any(0)
-    table_bytes = int(((nrows + 1) * entered).sum().item()) * 128 * 4
-    return total, table_bytes
+    return total, entered
+
+
+def chunk_bound(meta, n_chunks, slots_per_row):
+    """The bound's work counted on a chunked table: bound(o, d, t_answer) ->
+    (pairs, table_bytes), the slots of the needed chunks and the rows and
+    meta rows of those chunks, each read once (512 B a row)."""
+    meta = meta[:n_chunks]
+
+    def bound(o, d, t_answer):
+        nrows = meta[:, 7]
+        pairs, entered = needed_work(meta[:, 0:3], meta[:, 3:6], nrows * slots_per_row,
+                                     o, d, t_answer)
+        return pairs, int(((nrows + 1) * entered).sum().item()) * ROW_BYTES
+    return bound
+
+
+def leaf_bound(bvh):
+    """The bound's work counted on the skip-link BVH's leaves of at most 8
+    triangles (scene.bvh of the BVH route): the prim_count triangles of each
+    needed leaf, and as bytes those triangles' slots (64 B each) and the 10
+    floats a walk reads of every needed node, inner or leaf (box, links,
+    first primitive and count: 40 B), each read once.  The leaves are the
+    triangle table's rows in both routes, so this bounds K3/K4 and K6
+    alike."""
+    import torch
+
+    slots = bvh.prim_count.to(torch.float32)
+
+    def bound(o, d, t_answer):
+        pairs, entered = needed_work(bvh.node_min, bvh.node_max, slots, o, d, t_answer)
+        tris = int(bvh.prim_count[entered].sum().item())
+        return pairs, tris * SLOT_BYTES + int(entered.sum().item()) * NODE_BYTES
+    return bound
+
+
+def bound_record(kind, n_lanes, lane_bytes, pairs, table_bytes, peak_ops):
+    """(bound_ms, bound_by): the larger of the needed bytes (table_bytes and
+    lane_bytes per lane) over the HBM rate and the needed pairs' FP32
+    operations over the FP32 peak."""
+    t_bytes = (table_bytes + n_lanes * lane_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs * OPS_PER_PAIR[kind] / peak_ops * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def nearest_occluder(kind, table, n_chunks, o, d, excl, excl_ent, t_max):
@@ -292,6 +375,43 @@ def nearest_occluder(kind, table, n_chunks, o, d, excl, excl_ent, t_max):
         ok &= ent != excl_ent[a:b, None]
         out[a:b] = torch.where(ok, t, float("inf")).amin(1)
     return out
+
+
+def k6_vs_k3(label, k6, k3, o, d, tri_v0, tri_n):
+    """Hold K6's answers (t, idx, ent) against K3's on the same rays (o, d):
+    the lanes that part on hit or miss and on id (at most K6_VS_K3_PART of
+    them), and t where both hit the same triangle (within K6_VS_K3_T_UNITS
+    of that triangle's intersection rounding; tri_v0, tri_n: the triangles
+    in the order both tables share).  Returns (hit parts, id parts)."""
+    import torch
+
+    (ta, ia, _), (tb, ib, _) = k6, k3
+    ha, hb = ta < BIG, tb < BIG
+    both = ha & hb
+    hit_parts = int((ha != hb).sum().item())
+    id_parts = int((both & (ia != ib)).sum().item())
+    same = both & (ia == ib)
+    k = ib.long()[same]
+    oo, dd, t = o[same], d[same], tb[same]
+    cos = ((tri_n[k] * dd).sum(1) / dd.norm(dim=1)).abs()
+    unit = 2.0 ** -24 * (oo.abs().sum(1) + tri_v0[k].abs().sum(1) + t.abs()) / cos
+    dt = (ta[same] - t).abs()
+    worst = float((dt / unit).max().item()) if k.numel() else 0.0
+    rel = dt / t.abs()
+    n = o.shape[0]
+    log(f"[parity] {label}, {n} lanes: K6 vs K3 part on {hit_parts} lanes by hit "
+        f"or miss and on {id_parts} by id ({int(ha.sum().item())} and "
+        f"{int(hb.sum().item())} hits); same triangle: t within {worst:.3f} units "
+        f"of its rounding (relative to t: largest "
+        f"{float(rel.max().item()) if k.numel() else 0.0:.3e}, "
+        f"{int((rel > 1e-5).sum().item())} lanes above 1e-5)")
+    if hit_parts + id_parts > K6_VS_K3_PART * n:
+        raise AssertionError(f"{label}: K6 and K3 part on {hit_parts + id_parts} of "
+                             f"{n} lanes (more than {K6_VS_K3_PART:g} of them)")
+    if not worst <= K6_VS_K3_T_UNITS:
+        raise AssertionError(f"{label}: K6's t differs from K3's by {worst:.3f} units "
+                             f"of its rounding (> {K6_VS_K3_T_UNITS})")
+    return hit_parts, id_parts
 
 
 def check_equal(name, got, want):
@@ -355,7 +475,7 @@ def _families():
     wrapper, plain)).  Every wrapper and plain version takes (table,
     n_chunks, o, d, excl, t_init) or (table, n_chunks, o, d, excl, excl_ent,
     t_max); the flat kernels read table.tris only."""
-    ST, TT, CS = _kernel_modules()
+    ST, TT, CS, _ = _kernel_modules()
     rows_only = lambda fn: lambda tab, nc, *a: fn(tab.tris, *a)
     sph_ch = rows_only(ST.closest_hit_spheres_plain)
     sph_ah = rows_only(ST.occludes_spheres_plain)
@@ -378,20 +498,21 @@ def _families():
 
 
 def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True,
-            bound_on=None):
+            bound=None):
     """Hold the closest-hit and any-hit kernels of one family (a key of
     _families()) against their plain versions on these inputs (equal outputs),
     time both, and bound both by the work these inputs need.  ch_args = (o,
     d, excl, t_init); ah_args = (o, d, excl, excl_ent, t_max).  The plain
     versions are timed like the kernels (plain_reps) or, for the triangle
     brute force, once.  The bound belongs to the function, not to the table
-    the kernel reads: bound_on = (table, n_chunks) counts the needed work on
-    the finest chunking of the same rows (default: the kernel's own table).
-    Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    the kernel reads: bound(o, d, t_answer) -> (pairs, table_bytes) counts
+    it on the finest division of the same rows (default: the kernel's own
+    chunks).  Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)}."""
     import torch
 
     rows, (ch_name, ch, ch_plain), (ah_name, ah, ah_plain) = _families()[kind]
-    bound_table, bound_nc = bound_on or (table, nc)
+    bound = bound or chunk_bound(table.chunk_meta, nc, SLOTS_PER_ROW[rows])
     peak_ops, peak_txt = fp32_peak(ch_args[0].device)
     lane_in = 24 + 4 + 4  # o, d, excl, seed
 
@@ -417,20 +538,41 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True,
         ms = timer(lambda: run(table, nc, *args))
         if plain_reps:
             plain_ms = timer(lambda: plain(table, nc, *args))
-        pairs, table_bytes = needed_work(bound_table.chunk_meta, bound_nc,
-                                         SLOTS_PER_ROW[rows], args[0], args[1], answer)
-        bytes_ = table_bytes + n * (lane_in + extra_in + out_bytes)
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = pairs * OPS_PER_PAIR[rows] / peak_ops * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        pairs, table_bytes = bound(args[0], args[1], answer)
+        bound_ms, bound_by = bound_record(rows, n, lane_in + extra_in + out_bytes,
+                                          pairs, table_bytes, peak_ops)
         recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=max(t_bytes, t_ops), bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by)
         log(f"[timing] {name}, {label}, {n} lanes: {ms:.4f} ms (plain "
-            f"{plain_ms:.3f} ms), bound {max(t_bytes, t_ops):.4f} ms by {bound_by} "
-            f"({pairs} needed pair tests, {bytes_} bytes of which {table_bytes} "
-            f"needed table; FP32 peak "
-            f"{peak_ops / 1e12:.2f} T op/s = {peak_txt})")
+            f"{plain_ms:.3f} ms), bound {bound_ms:.4f} ms by {bound_by} "
+            f"({pairs} needed pair tests, {table_bytes} needed table bytes; FP32 "
+            f"peak {peak_ops / 1e12:.2f} T op/s = {peak_txt})")
     return recs
+
+
+def measure_packet(label, pbvh, args, timer, bound):
+    """K6 on these inputs (o, d, excl, t_init): held equal to its plain
+    version, the kernel timed (median of 25) and the plain version once,
+    bounded by bound (leaf_bound).  Returns {name: record}."""
+    import torch
+
+    PK = _kernel_modules()[3]
+    peak_ops, peak_txt = fp32_peak(args[0].device)
+    got = PK.closest_hit_packet(pbvh, *args)
+    plain_ms, want = time_once(lambda: PK.closest_hit_packet_plain(pbvh, *args))
+    err = check_equal(f"packet_closest_hit {label}", got, want)
+    ms = timer(lambda: PK.closest_hit_packet(pbvh, *args))
+    n = args[0].shape[0]
+    pairs, table_bytes = bound(args[0], args[1], torch.minimum(got[0], args[-1]))
+    bound_ms, bound_by = bound_record("vtri", n, 24 + 4 + 4 + 12, pairs,
+                                      table_bytes, peak_ops)
+    hits = int((got[0] < BIG).sum().item())
+    log(f"[timing] packet_closest_hit, {label}, {n} lanes ({hits} hits): {ms:.4f} ms "
+        f"(plain {plain_ms:.3f} ms, equal), bound {bound_ms:.4f} ms by {bound_by} "
+        f"({pairs} needed pair tests, {table_bytes} needed table bytes; FP32 peak "
+        f"{peak_ops / 1e12:.2f} T op/s = {peak_txt})")
+    return {"packet_closest_hit": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by)}
 
 
 def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
@@ -441,7 +583,7 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
     Returns per-kernel records."""
     import torch
 
-    ST, _, CS = _kernel_modules()
+    ST, _, CS, _ = _kernel_modules()
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_stress_scene
 
@@ -470,7 +612,8 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
             f"{ah_name} primary", ah(table, chunks, po, pd, p_excl, excl_ent, t_max),
             ah_plain(table, chunks, po, pd, p_excl, excl_ent, t_max)))
         fam = measure(kind, "incoherent frame", table, chunks, (o, d, excl, t_init),
-                      (o, d, excl, excl_ent, t_max), timer, bound_on=(ps, nc))
+                      (o, d, excl, excl_ent, t_max), timer,
+                      bound=chunk_bound(ps.chunk_meta, nc, SLOTS_PER_ROW["sphere"]))
         hits = int((ch(table, chunks, o, d, excl, t_init)[0] < BIG).sum().item())
         occl = int(ah(table, chunks, o, d, excl, excl_ent, t_max).sum().item())
         log(f"[parity] {label} == plain at {n} lanes x {table.tris.shape[0] * 16} "
@@ -509,15 +652,22 @@ def repack_tris(scene, rows_per_chunk, device):
 
 def tri_kernel_phases(device, scene_path, label, width=720, height=480,
                       timer=time_ms, scan=False):
-    """Phases 3b and 4b for one mesh scene: K3/K4 timed on a full frame of
-    primary rays and one of incoherent rays, held equal to their plain
-    versions and bounded on SUBSET of those lanes (every (n / (SUBSET/2))-th
-    primary ray and the first SUBSET/2 incoherent rays; the primary lanes'
-    any-hit queries take the incoherent set's excl_ent and t_max).  With
-    scan, phases 3d/4d: the same for K7/K9 on the table repacked at 32 rows
-    per chunk, bounded as K3/K4 are, on the scene's own chunks of the same
-    leaves.  Returns per-kernel records at the subset, with frame_ms
-    added."""
+    """Phases 3b/4b and 3e/4e for one mesh scene, built on the kernel route
+    and on the BVH route (the same BVH, so the same leaves and ids).
+
+    3b/4b: K3/K4 timed on a full frame of primary rays and one of incoherent
+    rays, held equal to their plain versions and bounded on SUBSET of those
+    lanes (every (n / (SUBSET/2))-th primary ray and the first SUBSET/2
+    incoherent rays; the primary lanes' any-hit queries take the incoherent
+    set's excl_ent and t_max).  With scan, phases 3d/4d: the same for K7/K9
+    on the table repacked at 32 rows per chunk.  3e/4e: K6 held equal to its
+    plain version on SUBSET primary rays (every (n / SUBSET)-th) and on the
+    first SUBSET incoherent rays (t_init 0 where t_max is), and timed there
+    and on both full frames, with K3 timed on the same rays beside it and
+    its answers held to K6's there (k6_vs_k3).  Every kernel is bounded on the BVH's leaves (leaf_bound): the finest
+    division of the same rows, so one bound per function and rays.  Returns
+    per-kernel records at the subsets, with frame_ms added (K6: at the
+    incoherent subset, with primary_* and the K3 times beside)."""
     import torch
 
     from paths_tpu_torch.ops import chunk_scan as CS
@@ -525,11 +675,20 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
     from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
     t = time.time()
-    static, scene, cam = build_scene(load_scene_description(scene_path), device=device)
+    sd = load_scene_description(scene_path)
+    static, scene, cam = build_scene(sd, device=device)
     tables = [("tri", "K3/K4", scene.ptris, static.tri_chunks, static.tri_rows)]
     log(f"[build] {label}: {static.n_tris} triangles, {static.tri_chunks} chunks of "
         f"{static.tri_rows} rows, table {scene.ptris.tris.shape[0]} rows; scene "
         f"built in {time.time() - t:.1f} s")
+    t = time.time()
+    bstatic, bscene, _ = build_scene(sd, device=device, bvh_threshold=BVH_THRESHOLD)
+    assert bstatic.use_bvh and bstatic.tri_chunks == 0
+    bvh = bscene.bvh
+    log(f"[build] {label} BVH route: {bvh.node_min.shape[0]} nodes, "
+        f"{int((bvh.prim_count > 0).sum().item())} leaves, K6 table "
+        f"{bscene.pbvh.tris.shape[0]} leaf rows; scene built in {time.time() - t:.1f} s")
+    bound = leaf_bound(bvh)
     if scan:
         pt, nc = repack_tris(scene, CS.TRI_ROWS_PER_CHUNK, device)
         tables.append(("scan_tri", "K7/K9", pt, nc, CS.TRI_ROWS_PER_CHUNK))
@@ -563,12 +722,53 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
         fam = measure(kind, f"{label} subset", pt, nc, (so, sd_, sx, cat(p_t, t_init)),
                       (so, sd_, sx, torch.cat([excl_ent[half:SUBSET], excl_ent[:half]]),
                        torch.cat([t_max[half:SUBSET], t_max[:half]])),
-                      timer, plain_reps=False, bound_on=(scene.ptris, static.tri_chunks))
+                      timer, plain_reps=False, bound=bound)
         log(f"[parity] {label}: {kernels} == plain at {SUBSET} lanes x "
             f"{pt.tris.shape[0] * 8} slots ({rows}-row chunks)")
         for name, r in fam.items():
             r["frame_ms"] = frame[name]
         recs.update(fam)
+
+    # 3e/4e: K6 on the BVH route's table, K3 on the same rays beside it.
+    _, TT, _, PK = _kernel_modules()
+    k6 = lambda *a: PK.closest_hit_packet(bscene.pbvh, *a)
+    k3 = lambda *a: TT.closest_hit_tris(scene.ptris, static.tri_chunks, *a)
+    psel = torch.arange(SUBSET, device=device) * (n // SUBSET)
+    t0_inc = torch.where(t_max == 0, 0.0, t_init).contiguous()
+    subsets = {
+        "primary": tuple(x[psel].contiguous() for x in (po, pd, p_excl, p_t)),
+        "incoherent": tuple(x[:SUBSET].contiguous() for x in (o, d, excl, t0_inc)),
+    }
+    packet = {}
+    for which, args in subsets.items():
+        r = measure_packet(f"{label} {which} subset", bscene.pbvh, args, timer, bound)
+        r = r["packet_closest_hit"]
+        r["k3_ms"] = timer(lambda: k3(*args))
+        log(f"[timing] tri_closest_hit on the same {SUBSET} {which} lanes: "
+            f"{r['k3_ms']:.4f} ms (K6 {r['ms']:.4f} ms)")
+        r["k3_parts"] = k6_vs_k3(f"{label} {which} subset", k6(*args), k3(*args),
+                                 args[0], args[1], scene.tri_v0, scene.tri_n)
+        packet[which] = r
+    frames = {"frame_primary_ms": (po, pd, p_excl, p_t),
+              "frame_ms": (o, d, excl, t0_inc)}
+    rec = dict(packet["incoherent"])
+    for key, args in frames.items():
+        rec[key] = timer(lambda: k6(*args))
+        rec["k3_" + key] = timer(lambda: k3(*args))
+        got = k6(*args)
+        hits = int((got[0] < BIG).sum().item())
+        log(f"[timing] {label} {key[:-3].replace('_', ' ')}, {n} lanes: "
+            f"packet_closest_hit {rec[key]:.3f} ms ({hits} hits), tri_closest_hit "
+            f"{rec['k3_' + key]:.3f} ms")
+        rec["k3_parts_" + key[:-3]] = k6_vs_k3(
+            f"{label} {key[:-3].replace('_', ' ')}", got, k3(*args), args[0], args[1],
+            scene.tri_v0, scene.tri_n)
+    rec.update({f"primary_{k}": v for k, v in packet["primary"].items()
+                if k in ("ms", "plain_ms", "bound_ms", "bound_by", "k3_ms", "k3_parts")})
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in packet.values())
+    log(f"[parity] {label}: K6 == plain at {SUBSET} primary and {SUBSET} incoherent "
+        f"lanes ({bscene.pbvh.tris.shape[0]} leaf rows)")
+    recs["packet_closest_hit"] = rec
     return recs
 
 
@@ -608,12 +808,32 @@ def rel_mse(a, b):
     return float(np.mean((a - b) ** 2) / (np.mean(b ** 2) + 1e-12))
 
 
+def image_parts(name, a, b):
+    """Log how image a differs from image b: the relative MSE, the pixels
+    that differ at all, those that differ by more than 1e-3 of their value
+    (paths that parted, not rounding), and the share of the squared error
+    that the 100 worst pixels carry.  Returns the relative MSE."""
+    import numpy as np
+
+    err = ((a - b) ** 2).sum(-1).ravel()
+    differ = int((err > 0).sum())
+    parted = int((np.abs(a - b).max(-1) > 1e-3 * (np.abs(b).max(-1) + 1e-6)).sum())
+    top = float(np.sort(err)[::-1][:100].sum() / max(float(err.sum()), 1e-30))
+    rel = rel_mse(a, b)
+    log(f"[main] {name}: relative MSE {rel:.3e}, {differ} of {err.size} pixels differ, "
+        f"{parted} by more than 1e-3 of their value; the 100 worst pixels carry "
+        f"{100 * top:.1f}% of the squared error")
+    return rel
+
+
 def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     """Phase 5: the CLI on the stress scene, the lit stress scene through the
     library entry points, the CLI on the two mesh scenes, then the stress
     and lit stress scenes again on the flat route, each image held to its
-    walk-route counterpart.  Returns the summed launch counts of the six
-    paths."""
+    walk-route counterpart, and the two mesh scenes again on the BVH route
+    (build_scene(..., bvh_threshold=32768) and render_image, at the same
+    spp and seed), each image compared with its kernel-route counterpart.
+    Returns the summed launch counts of the eight paths."""
     import numpy as np
     import torch
 
@@ -622,6 +842,7 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     from paths_tpu_torch.render import render_image
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_lit_stress_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
     def cli_args(out, n_spp):
         argv = ["-o", os.path.join(out_dir, out), "--spp", str(n_spp)]
@@ -653,6 +874,23 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
             f"sph_flat={static.sph_flat})")
         return img
 
+    def bvh_route(name, path, n_spp):
+        t = time.time()
+        static, scene, cam = build_scene(load_scene_description(path), device=device,
+                                         bvh_threshold=BVH_THRESHOLD)
+        if not static.use_bvh:
+            raise AssertionError(f"{name}: the build did not take the BVH route")
+        t_build = time.time() - t
+        t = time.time()
+        img = render_image(static, scene, C.resize(cam, width, height), width,
+                           height, spp=n_spp, seed=0)
+        dt = time.time() - t
+        check_image(name, img)
+        log(f"[main] {name} {width}x{height} {n_spp} spp: {dt:.2f} s "
+            f"({width * height * n_spp / dt / 1e6:.3f} M pixel-samples/s; scene "
+            f"build {t_build:.2f} s more)")
+        return img
+
     walk = ["sphere_closest_hit", "sphere_any_hit"]
     runs = [
         drive("stress-500", lambda: timed_cli(
@@ -674,13 +912,48 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
             drive("lit stress-500 flat", lambda: lit("lit stress-500 flat"),
                   ["flat_sphere_closest_hit", "flat_sphere_any_hit"], absent=walk),
         ]
-    for (_, walk_img), (_, flat_img), name in zip(runs[:2], runs[4:], ("stress-500", "lit stress-500")):
+    tri = ["tri_closest_hit", "tri_any_hit"]
+    runs += [
+        drive("doom_standin BVH route", lambda: bvh_route(
+            "doom_standin BVH route", DOOM, spp[2]), ["packet_closest_hit"], absent=tri),
+        drive("dragon_standin BVH route", lambda: bvh_route(
+            "dragon_standin BVH route", DRAGON, spp[3]), ["packet_closest_hit"],
+            absent=tri),
+    ]
+    for (_, walk_img), (_, flat_img), name in zip(runs[:2], runs[4:6], ("stress-500", "lit stress-500")):
         rel = rel_mse(flat_img, walk_img)
         diff = float(np.abs(flat_img - walk_img).max())
         log(f"[main] {name}: flat route vs walk route, relative MSE {rel:.3e}, "
             f"largest absolute difference {diff:.3e}")
         if not rel < 1e-4:
             raise AssertionError(f"{name}: flat vs walk relative MSE {rel:.3e} >= 1e-4")
+    for (_, kernel_img), (_, bvh_img), name in zip(runs[2:4], runs[6:8],
+                                                   ("doom_standin", "dragon_standin")):
+        rel = image_parts(f"{name}: BVH route (K6) vs kernel route (K3/K4)", bvh_img,
+                          kernel_img)
+        if not rel < BVH_VS_KERNEL_REL_MSE:
+            raise AssertionError(f"{name}: BVH vs kernel route relative MSE {rel:.3e} "
+                                 f">= {BVH_VS_KERNEL_REL_MSE}")
+    # Doom's difference split in two: the kernel route rendered again with
+    # its shadow rays taken from K3's closest hit, as the BVH route takes
+    # them from K6's.  Not a main path: its launches are not counted.
+    from paths_tpu_torch import integrator as I
+
+    def from_closest(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
+        f, _, _, e, t = I.intersect_brief(static, scene, o, d, excl_kind, excl_idx)
+        return f & (t < t_max) & (e != excl_ent)
+
+    static, scene, cam = build_scene(load_scene_description(DOOM), device=device)
+    any_hit, I.occluded_query = I.occluded_query, from_closest
+    try:
+        mixed = render_image(static, scene, C.resize(cam, width, height), width,
+                             height, spp=spp[2], seed=0)
+    finally:
+        I.occluded_query = any_hit
+    image_parts("doom_standin: shadows from K3's closest hit vs K4's any-hit, "
+                "K3 closest hits", mixed, runs[2][1])
+    image_parts("doom_standin: K6 vs K3 closest hits, shadows from the closest hit",
+                runs[6][1], mixed)
     total = {}
     for counts, _ in runs:
         for k, v in counts.items():
@@ -718,28 +991,32 @@ def capture_inputs(run, module, names, call_index=1):
 
 
 def where_time_goes(device, kind, label, make_scene, width=720, height=480,
-                    lanes=65536, spp=4, timer=time_ms):
+                    lanes=65536, spp=4, timer=time_ms, bound=None):
     """Phase 6 for one scene: one render_samples call on one main-path tile
     under torch.profiler: wall time against device-busy time, the traversal
     kernels' share, and the kernel launches per bounce iteration.  Then the
-    scene's closest-hit and any-hit kernels held and timed on the inputs
-    that tile's second bounce iteration gave them.  Returns per-kernel
-    records at that shape."""
+    scene's traversal kernels held and timed on the inputs that tile's
+    second bounce iteration gave them (closest-hit and any-hit; on the BVH
+    route, kind "packet", K6's closest-hit query of that iteration), bounded
+    by `bound` (default: the kernel's own chunks; leaf_bound for the
+    triangles).  Returns per-kernel records at that shape."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from paths_tpu_torch import camera as C
+    from paths_tpu_torch import integrator as I
     from paths_tpu_torch.render import render_samples, tiled_pixel_order
 
-    ST, TT, CS = _kernel_modules()
-    module, names, ch_name, src = {
-        "sphere": (ST, ("closest_hit_spheres", "occludes_spheres"),
-                   "sphere_closest_hit", "sphere_traverse"),
-        "tri": (TT, ("closest_hit_tris", "occludes_tris"), "tri_closest_hit",
-                "tri_traverse"),
-        "flat": (CS, ("flat_closest_hit", "flat_occludes"), "flat_sphere_closest_hit",
-                 "flat_spheres"),
+    ST, TT, CS, PK = _kernel_modules()
+    # (module, wrappers, kernel source in the profiler's names, call index of
+    # the second bounce iteration's query): K6 takes the closest-hit and the
+    # shadow query of every iteration, the others one call per wrapper.
+    module, names, src, call = {
+        "sphere": (ST, ("closest_hit_spheres", "occludes_spheres"), "sphere_traverse", 1),
+        "tri": (TT, ("closest_hit_tris", "occludes_tris"), "tri_traverse", 1),
+        "flat": (CS, ("flat_closest_hit", "flat_occludes"), "flat_spheres", 1),
+        "packet": (PK, ("closest_hit_packet",), "packet_walk", 2),
     }[kind]
     static, scene, cam = make_scene()
     cam = C.resize(cam, width, height)
@@ -748,16 +1025,26 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     px, py = (pix % width).to(torch.int32), (pix // width).to(torch.int32)
     # Warm-up, capturing the second bounce iteration's kernel inputs.
     cap = capture_inputs(
-        lambda: render_samples(static, scene, cam, px, py, pix, 0, 1, 0), module, names)
+        lambda: render_samples(static, scene, cam, px, py, pix, 0, 1, 0), module,
+        names, call)
     torch.cuda.synchronize()
-    before = launch_counts()[ch_name]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t = time.perf_counter()
-        render_samples(static, scene, cam, px, py, pix, 1, spp, 0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    iters = launch_counts()[ch_name] - before  # one closest-hit per path_step
+    step, iters = I.path_step, [0]
+
+    def counted_step(*args):
+        iters[0] += 1
+        return step(*args)
+
+    I.path_step = counted_step
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t = time.perf_counter()
+            render_samples(static, scene, cam, px, py, pix, 1, spp, 0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        I.path_step = step
+    iters = iters[0]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
@@ -784,18 +1071,26 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
 
     if set(cap) != set(names):
         raise AssertionError(f"kernel calls captured: {sorted(cap)}")
+    if kind == "packet":  # (pbvh, o, d, excl, t_init)
+        args = cap[names[0]]
+        return measure_packet(f"{label} main-path tile", args[0], args[1:], timer,
+                              bound or leaf_bound(scene.bvh))
     ch_a, ah_a = cap[names[0]], cap[names[1]]
     if kind == "flat":  # (rows, o, d, ...): the bound counts K1's chunks
         table, nc, ch_args, ah_args = scene.psph, static.sph_chunks, ch_a[1:], ah_a[1:]
     else:  # (table, n_chunks, o, d, ...)
         table, nc, ch_args, ah_args = ch_a[0], ch_a[1], ch_a[2:], ah_a[2:]
     return measure(kind, f"{label} main-path tile", table, nc, ch_args, ah_args,
-                   timer, plain_reps=kind != "tri")
+                   timer, plain_reps=kind != "tri", bound=bound)
 
 
-def gpu_vs_cpu(device, flat=False):
-    """Phase 7: the whole path with kernels vs with the plain versions, on
-    the mixed scene: K1-K4, or on the flat route (flat=True) K5, K3, K4."""
+def gpu_vs_cpu(device, route="walk"):
+    """Phase 7: the whole path with kernels vs with the plain versions on the
+    mixed scene, 48x32, 2 spp, 3 bounces.  route "walk": 40 spheres and the
+    128-triangle grid, K1-K4; "flat": the same on the flat route, K5, K3,
+    K4; "bvh": 8 spheres and the grid built with bvh_threshold=64, so the
+    card runs K6 and the CPU the walk of bvh/traverse.py (K6's function to
+    rtol 1e-5, not to the bit)."""
     from paths_tpu_torch import camera as C
     from paths_tpu_torch.render import render_image
     from paths_tpu_torch.scene.build import build_scene
@@ -804,20 +1099,28 @@ def gpu_vs_cpu(device, flat=False):
     imgs = []
     with tempfile.TemporaryDirectory() as tmp:
         for dev in (device, "cpu"):
-            if flat:
+            if route == "flat":
                 with flat_route():
                     static, scene, cam = build_scene(
                         generate_mixed_scene(tmp, n_spheres=40), device=dev)
+            elif route == "bvh":
+                static, scene, cam = build_scene(
+                    generate_mixed_scene(tmp, n_spheres=8), device=dev, bvh_threshold=64)
             else:
                 static, scene, cam = build_scene(
                     generate_mixed_scene(tmp, n_spheres=40), device=dev)
-            assert static.sph_chunks > 0 and static.tri_chunks > 0
-            assert static.sph_flat == flat
+            if route == "bvh":
+                assert static.use_bvh and static.tri_chunks == 0
+            else:
+                assert static.sph_chunks > 0 and static.tri_chunks > 0
+                assert static.sph_flat == (route == "flat")
             static = dataclasses.replace(static, max_bounces=3)
+            reset_launch_counts()
             imgs.append(render_image(static, scene, C.resize(cam, 48, 32), 48, 32,
                                      spp=2, seed=0))
+            if dev == device and route == "bvh" and launch_counts()["packet_closest_hit"] == 0:
+                raise AssertionError("GPU vs CPU (bvh route): K6 was not launched")
     rel = rel_mse(*imgs)
-    route = "flat" if flat else "walk"
     if not rel < 1e-4:
         raise AssertionError(f"GPU vs CPU ({route} route) relative MSE {rel:.3e} >= 1e-4")
     log(f"[gpu-vs-cpu] mixed scene 48x32 2 spp, {route} route: relative MSE "
@@ -851,29 +1154,35 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = main_path(device, tmp)
-    log(f"[main] kernel launches over the six paths: {launches}")
+    log(f"[main] kernel launches over the eight paths: {launches}")
 
     tile = where_time_goes(
         device, "sphere", "lit stress-500",
         lambda: build_scene(generate_lit_stress_scene(500), device=device))
+    doom_bvh = build_scene(load_scene_description(DOOM), device=device,
+                           bvh_threshold=BVH_THRESHOLD)
     tile.update(where_time_goes(
         device, "tri", "doom_standin",
-        lambda: build_scene(load_scene_description(DOOM), device=device)))
+        lambda: build_scene(load_scene_description(DOOM), device=device),
+        bound=leaf_bound(doom_bvh[1].bvh)))
 
     def flat_lit():
         with flat_route():
             return build_scene(generate_lit_stress_scene(500), device=device)
 
     tile.update(where_time_goes(device, "flat", "lit stress-500 flat route", flat_lit))
-    gpu_vs_cpu(device)
-    gpu_vs_cpu(device, flat=True)
+    tile.update(where_time_goes(device, "packet", "doom_standin BVH route",
+                                lambda: doom_bvh))
+    for route in ("walk", "flat", "bvh"):
+        gpu_vs_cpu(device, route)
 
     # ms, plain_ms and bound_ms are at the main path's shape (one tile of
-    # bounce and shadow rays) for K1-K5; K7-K9 are off the main path, so
+    # bounce and shadow rays) for K1-K6; K7-K9 are off the main path, so
     # theirs are at the doom subset (triangles) and the incoherent stress-500
     # frame (spheres).  frame_* at a full incoherent frame (spheres) and
     # doom_*/dragon_* at the 65,536-lane subsets (triangles; their frame_ms
-    # at the full incoherent frame).
+    # at the full incoherent frame; K6's at the incoherent subset, with
+    # primary_* at the primary subset and k3_* for K3 on the same rays).
     recs = []
     for name in KERNELS:
         at = tile.get(name) or (mesh["doom"] if name.startswith("scan_tri")
@@ -888,8 +1197,8 @@ def main() -> int:
         for m, rec in mesh.items():
             if name in rec:
                 r["max_abs_err"] = max(r["max_abs_err"], rec[name]["max_abs_err"])
-                r.update({f"{m}_{k}": rec[name][k] for k in
-                          ("ms", "plain_ms", "bound_ms", "bound_by", "frame_ms")})
+                r.update({f"{m}_{k}": v for k, v in rec[name].items()
+                          if k != "max_abs_err"})
         recs.append(r)
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": recs}))

@@ -67,11 +67,14 @@ def main(argv=None):
         width, height = (int(v) for v in args.size.lower().split("x"))
         cam = C.resize(cam, width, height)
     route = ("flat" if static.sph_flat else "walk") if static.sph_chunks else "scan"
+    tris = f"{static.n_tris} triangles"
+    if static.tri_chunks:
+        tris += f" (kernel route, {static.tri_chunks} chunks of {static.tri_rows} rows)"
+    elif static.n_tris:
+        tris += " (BVH route)" if static.use_bvh else " (scan route)"
     print(f"[{time.time()-t0:6.2f}s] scene built on {device}: "
           f"{static.n_spheres} spheres ({static.sph_chunks} kernel chunks, "
-          f"{route} route), "
-          f"{static.n_tris} triangles ({static.tri_chunks} kernel chunks of "
-          f"{static.tri_rows} rows), {static.n_lights} lights")
+          f"{route} route), {tris}, {static.n_lights} lights")
 
     t1 = time.time()
     img = render_image(static, scene, cam, width, height, spp=args.spp,

@@ -17,8 +17,10 @@ to the traversal kernels (``ops/sphere_traverse.py``,
 ``ops/chunk_scan.py`` when the build chose it) when the scene packed them;
 big and far spheres, and scenes with at most 32 small spheres, take the
 double-single test in
-``geom/sphere.py``; meshes of at most 64 triangles take an unrolled scan of
-``geom/triangle.py``.
+``geom/sphere.py``.  Meshes on the BVH route take the skip-link walk: the K6
+kernel (``ops/packet_traverse.py``) on the card, ``bvh/traverse.py`` on the
+CPU.  Meshes on neither route (by default, those of at most 64 triangles)
+take an unrolled scan of ``geom/triangle.py``.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ import torch
 from paths_tpu_torch import lights as LT
 from paths_tpu_torch import materials as M
 from paths_tpu_torch import sky as SK
+from paths_tpu_torch.bvh.traverse import closest_hit_bvh
 from paths_tpu_torch.geom import sphere as GS
 from paths_tpu_torch.geom import triangle as GT
 from paths_tpu_torch.math import vec
 from paths_tpu_torch.ops import chunk_scan as CS
+from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.sampling import hashing as H
@@ -106,7 +110,7 @@ def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
 
 def _scan_tris(static: SceneStatic, scene: SceneArrays, o, d, excl_kind,
                excl_idx):
-    """Closest hit among the (at most 64) unpacked triangles: (t, idx), a
+    """Closest hit among the unpacked triangles: (t, idx), a
     triangle winning where its t is strictly below the running best, the
     lowest index among equal t (the reference's unrolled loop)."""
     t, hit, *_ = GT.intersect(o[:, None, :], d[:, None, :],
@@ -117,6 +121,21 @@ def _scan_tris(static: SceneStatic, scene: SceneArrays, o, d, excl_kind,
     t = torch.where(hit & ~excl, t, BIG)
     arg = torch.argmin(t, dim=1)
     return torch.gather(t, 1, arg[:, None])[:, 0], arg.to(torch.int32)
+
+
+def _closest_bvh(scene: SceneArrays, o, d, excl_kind, excl_idx, t_init):
+    """The BVH route's closest triangle hit, seeded with t_init: (t, idx,
+    ent), t = BIG where nothing beats t_init.  K6 on the card, the walk of
+    bvh/traverse.py on the CPU."""
+    if o.device.type == "cpu":
+        tt, it = closest_hit_bvh(scene, o, d, excl_kind, excl_idx, t_init)
+        return tt, it, scene.tri_ent[it]
+    if scene.pbvh is None:
+        raise ValueError("the BVH route on the card needs the packed BVH "
+                         "table (scene.pbvh), which build_scene makes")
+    excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)
+    return PK.closest_hit_packet(scene.pbvh, o.contiguous(), d.contiguous(),
+                                 excl_i, t_init.contiguous())
 
 
 def intersect_brief(static, scene, o, d, excl_kind, excl_idx):
@@ -141,6 +160,8 @@ def intersect_brief(static, scene, o, d, excl_kind, excl_idx):
                 scene.ptris, static.tri_chunks, o.contiguous(), d.contiguous(),
                 excl_i, t.contiguous(),
             )
+        elif static.use_bvh:
+            tt, it, et = _closest_bvh(scene, o, d, excl_kind, excl_idx, t)
         else:
             tt, it = _scan_tris(static, scene, o, d, excl_kind, excl_idx)
             et = scene.tri_ent[it]
@@ -169,7 +190,9 @@ def occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
     derives occlusion from the closest hit -- the same predicate up to exact
     ties in t -- so its mesh scenes with few spheres (doom_standin,
     dragon_standin) trace shadow rays with the closest-hit kernel.  Without a
-    triangle table, the port follows the reference."""
+    triangle table (the BVH route, or the scan), the port follows the
+    reference: occlusion from the closest hit, through K6 on the BVH route
+    (the reference has no BVH any-hit)."""
     kernels = static.tri_chunks > 0 if static.has_tris else static.sph_chunks > 0
     if not kernels:
         f, _, _, e, t = intersect_brief(static, scene, o, d, excl_kind, excl_idx)

@@ -15,10 +15,16 @@ morton-packed for the traversal kernels and the scene arrays are put in the
 packed order, so sphere ids equal the reference package's.  With
 ``PATHS_TPU_SPH_FLAT=1`` (read once, here) and a table of at most
 ``SPH_FLAT_MAX_ROWS`` rows they take the flat kernel instead of the walk.
-Meshes of more than 64 triangles in all are BVH-ordered and packed for the
-triangle kernels (the reference's forced-kernel build); at most 64 take the
-unrolled scan in the integrator.  No choice depends on the device: on the
-CPU the kernel wrappers run their plain versions.
+Triangles take one of three routes.  By default (``bvh_threshold=None``)
+meshes of more than 64 triangles in all are BVH-ordered and packed for the
+triangle kernels (the reference's accelerator or forced-kernel build), and
+at most 64 take the unrolled scan in the integrator.  With an integer
+``bvh_threshold`` the reference's CPU rule applies instead: more triangles
+than that take the BVH route (the skip-link BVH, walked by
+``bvh/traverse.py`` on the CPU and by the K6 kernel on the card, whose
+table is packed only when the scene is on the card), and at most that many
+take the scan.  No other choice depends on the device: on the CPU the
+kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -36,11 +42,12 @@ from paths_tpu_torch.bvh.build import build_bvh
 from paths_tpu_torch.camera import make_camera
 from paths_tpu_torch.math import matrix as mat
 from paths_tpu_torch.ops import chunk_scan as CS
+from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene import desc as D
 from paths_tpu_torch.scene.models import ModelLibrary
-from paths_tpu_torch.scene.types import SceneArrays, SceneStatic
+from paths_tpu_torch.scene.types import BvhArrays, SceneArrays, SceneStatic
 
 _NO_SUB = (M.LAMBERTIAN, np.zeros(3), 0.0, 0.0, 0.0)  # (mtype, albedo, r0, metal, rough)
 
@@ -141,10 +148,15 @@ def _mesh_triangles(mesh: D.MeshD, model, ent: int) -> dict:
                 smooth=np.full(len(faces), smooth, bool))
 
 
-def build_scene(sd: D.SceneDescription, device=None):
+def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
     """Returns (static, scene_arrays, camera) on ``device`` (default cuda;
     raises without a CUDA device unless device="cpu").  Model files resolve
-    against the working directory, the scene's directory and its parent."""
+    against the working directory, the scene's directory and its parent.
+
+    bvh_threshold: None sends meshes of more than 64 triangles to the
+    triangle kernels; an integer sends more triangles than that to the BVH
+    route and at most that many to the scan (the reference's rule on the
+    CPU, where its default is 32768)."""
     device = resolve_device(device)
     library = ModelLibrary(search_dirs=[".", sd.base_dir, os.path.dirname(sd.base_dir)])
     for name, filepath in sd.models.items():
@@ -241,20 +253,30 @@ def build_scene(sd: D.SceneDescription, device=None):
     else:
         sphc = np.zeros((1, 3)); sphr = np.zeros(1); sphe = np.zeros(1, np.int64)
 
-    # ---- triangles: BVH order, packed kernel table ----
+    # ---- triangles: BVH order, then the kernel table or the BVH route ----
     ptris = None
     tri_chunks = 0
     tri_rows = TT.ROWS_PER_CHUNK
+    bvh = pbvh = None
     n_tris = sum(len(p["v0"]) for p in tri_parts)
     if n_tris:
         tri = {k: np.concatenate([p[k] for p in tri_parts]) for k in tri_parts[0]}
-        if n_tris > KERNEL_MIN_TRIS:
+        use_bvh = bvh_threshold is not None and n_tris > bvh_threshold
+        if use_bvh or (bvh_threshold is None and n_tris > KERNEL_MIN_TRIS):
             flat = build_bvh(np.minimum(np.minimum(tri["v0"], tri["v1"]), tri["v2"]),
-                             np.maximum(np.maximum(tri["v0"], tri["v1"]), tri["v2"]))
+                             np.maximum(np.maximum(tri["v0"], tri["v1"]), tri["v2"]),
+                             leaf_size=PK.PACK_LEAF)
             tri = {k: v[flat.order] for k, v in tri.items()}
-            ptris, tri_chunks, tri_rows = TT.pack_tris(
-                flat, tri["v0"], tri["v1"], tri["v2"], tri["n"], ent=tri["ent"],
-                device=device)
+            if use_bvh:
+                bvh = BvhArrays(*(torch.as_tensor(getattr(flat, f), device=device)
+                                  for f in BvhArrays._fields))
+                if device.type == "cuda":
+                    pbvh = PK.pack_bvh(flat, tri["v0"], tri["v1"], tri["v2"],
+                                       tri["n"], ent=tri["ent"], device=device)
+            else:
+                ptris, tri_chunks, tri_rows = TT.pack_tris(
+                    flat, tri["v0"], tri["v1"], tri["v2"], tri["n"],
+                    ent=tri["ent"], device=device)
     else:
         z = np.zeros((1, 3))
         tri = dict(v0=z, v1=z, v2=z, n=z, vn0=z, vn1=z, vn2=z, vc0=z, vc1=z,
@@ -315,6 +337,8 @@ def build_scene(sd: D.SceneDescription, device=None):
         sky=sky_arr,
         psph=psph,
         ptris=ptris,
+        bvh=bvh,
+        pbvh=pbvh,
     )
     static = SceneStatic(
         n_spheres=n_spheres,
@@ -328,6 +352,7 @@ def build_scene(sd: D.SceneDescription, device=None):
         n_tris=n_tris,
         tri_chunks=tri_chunks,
         tri_rows=tri_rows,
+        use_bvh=bvh is not None,
     )
     cam = make_camera(
         width=sd.camera.image_width,

@@ -9,11 +9,13 @@ model.rs:158-172), and one entity table (objects, then lights) holding the
 material SoA and light emission.  ``SceneArrays`` holds the tensors,
 ``SceneStatic`` the build-time facts (counts, sky type, traversal layout).
 
-The reference's TPU schedule fields (one-hot tables, interpret mode, block
+Triangles take one of three routes, chosen at build (``scene/build.py``):
+the packed triangle table and its kernels (``ptris``), the skip-link BVH
+(``use_bvh``: ``bvh`` for the walk on the CPU, ``pbvh`` for the kernel on
+the card), or, for small meshes, an unrolled scan of the scene arrays.  The
+reference's TPU schedule fields (one-hot tables, interpret mode, block
 widths, streamed and replicated triangle tables, wave presorting, occlusion
-sorting) have no counterpart here, nor has its XLA BVH fallback
-(``bvh``, ``use_bvh``): the port takes the kernels for every mesh of more
-than 64 triangles.
+sorting) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -25,9 +27,22 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from paths_tpu_torch.ops.packet_traverse import PackedBvh
 from paths_tpu_torch.ops.sphere_traverse import PackedSpheres
 from paths_tpu_torch.ops.tri_traverse import PackedTris
 from paths_tpu_torch.sky import Sky
+
+
+class BvhArrays(NamedTuple):
+    """The skip-link BVH (``bvh/build.py::FlatBvh``) as tensors, for the
+    walk of ``bvh/traverse.py``."""
+
+    node_min: torch.Tensor  # (M, 3) f32
+    node_max: torch.Tensor  # (M, 3) f32
+    hit_link: torch.Tensor  # (M,) int32
+    miss_link: torch.Tensor  # (M,) int32
+    prim_start: torch.Tensor  # (M,) int32
+    prim_count: torch.Tensor  # (M,) int32 (0 for an inner node)
 
 
 class SceneArrays(NamedTuple):
@@ -87,9 +102,13 @@ class SceneArrays(NamedTuple):
     # Packed small-sphere table for the traversal kernels (None when the
     # scene has at most 32 small spheres).
     psph: Optional[PackedSpheres] = None
-    # Packed triangle table for the traversal kernels (None when the scene
-    # has at most 64 triangles).
+    # Packed triangle table for the traversal kernels (None unless the
+    # triangles take the kernel route).
     ptris: Optional[PackedTris] = None
+    # The skip-link BVH of the BVH route (None on the other routes), and its
+    # packed table for the K6 kernel (only when the scene is on the card).
+    bvh: Optional[BvhArrays] = None
+    pbvh: Optional[PackedBvh] = None
 
 
 @dataclass(frozen=True)
@@ -112,10 +131,12 @@ class SceneStatic:
     # at most SPH_FLAT_MAX_ROWS rows.
     sph_flat: bool = False
     n_tris: int = 0
-    # Chunks of the packed triangle table (0: at most 64 triangles, the
-    # unrolled scan) and its rows per chunk (8, or 20 for large tables).
+    # Chunks of the packed triangle table (0: no table, the BVH route or
+    # the unrolled scan) and its rows per chunk (8, or 20 for large tables).
     tri_chunks: int = 0
     tri_rows: int = 8
+    # The triangles take the BVH route (build_scene's bvh_threshold).
+    use_bvh: bool = False
     # Bounce cap (trace.rs:14 caps `loops > 10` -> 11 iterations).
     max_bounces: int = 10
 
@@ -142,7 +163,9 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
     field name to an array, with ``sky.colour_a``/``sky.colour_b`` for the
     sky, ``psph.tris``/``psph.chunk_meta`` for the packed sphere table and
     ``ptris.tris``/``ptris.chunk_meta``/``ptris.tri_ent`` for the packed
-    triangle table (the reference's replicated table is not read).
+    triangle table (the reference's replicated table is not read) and
+    ``bvh.<field>`` for the BVH arrays.  ``pbvh`` stays None: the K6 table
+    is packed from the f64 triangles, which only the scene build has.
     Returns (SceneStatic, SceneArrays) on ``device``."""
     names = {f.name for f in dataclasses.fields(SceneStatic)}
     kw = {}
@@ -176,6 +199,13 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
                 PackedTris(*(tensor(arrays[f"ptris.{f}"]) for f in PackedTris._fields))
                 if "ptris.tris" in arrays else None
             )
+        elif name == "bvh":
+            fields[name] = (
+                BvhArrays(*(tensor(arrays[f"bvh.{f}"]) for f in BvhArrays._fields))
+                if "bvh.node_min" in arrays else None
+            )
+        elif name == "pbvh":
+            fields[name] = None
         else:
             fields[name] = tensor(arrays[name])
     return static, SceneArrays(**fields)

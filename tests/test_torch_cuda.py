@@ -12,6 +12,7 @@ import torch
 
 from paths_tpu_torch.bvh.build import build_bvh
 from paths_tpu_torch.ops import chunk_scan as CS
+from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 
@@ -81,11 +82,12 @@ def test_wrapper_raises_instead_of_falling_back(dev):
         ST.closest_hit_spheres(ps, nc, o, d, excl, t_init.cpu())
 
 
-def _mesh_and_rays(dev, n_tris, seed=0, rows=None):
+def _mesh_and_rays(dev, n_tris, seed=0, rows=None, bvh=False):
     """A soup of n_tris small triangles in [-10, 10]^3 packed as the scene
-    build packs it (or at `rows` rows per chunk), and N rays: half aimed at
-    the soup, a twentieth dead, exclusions, finite t_init, excl_ent and t_max
-    (some 0)."""
+    build packs it (at `rows` rows per chunk, or with bvh=True as the K6
+    table, in place of PackedTris and its chunk count), and N rays: half
+    aimed at the soup, a twentieth dead, exclusions, finite t_init, excl_ent
+    and t_max (some 0)."""
     rng = np.random.default_rng(seed)
     c = rng.uniform(-10, 10, (n_tris, 3))
     v0, v1, v2 = (c + rng.uniform(-0.8, 0.8, (n_tris, 3)) for _ in range(3))
@@ -94,7 +96,10 @@ def _mesh_and_rays(dev, n_tris, seed=0, rows=None):
     flat = build_bvh(np.minimum(np.minimum(v0, v1), v2),
                      np.maximum(np.maximum(v0, v1), v2))
     v0, v1, v2, n = (a[flat.order] for a in (v0, v1, v2, n))
-    if rows is None:
+    if bvh:
+        pt, n_chunks = PK.pack_bvh(flat, v0, v1, v2, n, ent=np.arange(n_tris) % 17,
+                                   device=dev), None
+    elif rows is None:
         pt, n_chunks, _ = TT.pack_tris(flat, v0, v1, v2, n,
                                        ent=np.arange(n_tris) % 17, device=dev)
     else:
@@ -227,3 +232,36 @@ def test_new_wrappers_raise_instead_of_falling_back(dev):
         CS.occludes_chunked(pt, tc, o, d, excl, excl_ent, t_max.cpu())
     with pytest.raises(ValueError):
         CS.occludes_chunked(pt, pt.chunk_meta.shape[0] + 1, o, d, excl, excl_ent, t_max)
+
+
+# ---- K6 (the skip-link BVH walk) ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", [3000, 120000])
+def test_packet_kernel_matches_plain(dev, n_tris):
+    pt, _, (o, d, excl, t_init, _, _) = _mesh_and_rays(dev, n_tris, seed=5, bvh=True)
+    d[:64, 0] = 0.0  # a zero direction component
+    before = PK.LAUNCHES["packet_closest_hit"]
+    got = PK.closest_hit_packet(pt, o, d, excl, t_init)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["packet_closest_hit"] == before + 1
+    for g, w in zip(got, PK.closest_hit_packet_plain(pt, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    assert int((got[0] < 3.4e38).sum()) > N // 8
+
+
+@pytest.mark.cuda
+def test_packet_wrapper_raises_instead_of_falling_back(dev):
+    pt, _, (o, d, excl, t_init, _, _) = _mesh_and_rays(dev, 3000, bvh=True)
+    with pytest.raises(TypeError):
+        PK.closest_hit_packet(pt, o, d, excl.long(), t_init)
+    with pytest.raises(TypeError):
+        PK.closest_hit_packet(pt, o.double(), d, excl, t_init)
+    with pytest.raises(ValueError):
+        PK.closest_hit_packet(pt, o, d, excl, t_init.cpu())
+    with pytest.raises(ValueError):
+        PK.closest_hit_packet(pt, o[:, :2].contiguous(), d, excl, t_init)
+    with pytest.raises(ValueError):
+        PK.closest_hit_packet(pt, o, d.t().contiguous().t(), excl, t_init)
+    with pytest.raises(ValueError):
+        PK.closest_hit_packet(pt._replace(walk=pt.walk.cpu()), o, d, excl, t_init)

@@ -50,7 +50,8 @@ _EXPECTED = {
     "paths_tpu_torch.scene.models",
     "paths_tpu_torch.scene.obj_loader", "paths_tpu_torch.scene.ply_loader",
     "paths_tpu_torch.scene.yaml_loader", "paths_tpu_torch.scene.build",
-    "paths_tpu_torch.integrator",
+    "paths_tpu_torch.integrator", "paths_tpu_torch.ops.packet_traverse",
+    "paths_tpu_torch.bvh.traverse",
 }
 
 
