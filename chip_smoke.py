@@ -7,8 +7,9 @@ Phases, one line each (any failure exits non-zero before the last line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
      csrc/flat_spheres.cu, csrc/chunk_scan.cu, csrc/packet_bvh.cu; nvcc with
-     ptxas -v) and the C++ BVH builder (csrc/bvh_builder.cc, g++), all
-     started together, timed;
+     ptxas -v, whose registers, stack frame, spills and shared memory are
+     printed per kernel) and the C++ BVH builder (csrc/bvh_builder.cc, g++),
+     all started together, timed;
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
      card, at the stress-500 table and a full 720x480 frame of lanes
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
@@ -34,7 +35,13 @@ Phases, one line each (any failure exits non-zero before the last line):
      tenth-or-so primary ray and the first 32,768 incoherent rays -- where
      the bound is counted too;
   3d/4d. the same for K7 and K9's triangle form on the doom_standin table
-     repacked at 32 rows per chunk (the same leaves);
+     repacked at 32 rows per chunk (the same BVH and leaves), and K3/K4 on
+     that same table and subset beside them;
+  3f. K3/K4 held equal to their plain versions on 4,096 adversarial lanes
+     of each table (doom at 8 and 32 rows, dragon at 20): rays aimed exactly
+     at vertices and edge midpoints (exact t ties between triangles), t_init
+     and t_max at a lane's exact hit and occluder distances, t_max == 0,
+     dead lanes, zero direction components, origins on a box plane;
   3e/4e. K6 on the BVH route's table of each mesh scene (the same BVH and
      leaves): held equal to its plain version on 65,536 primary rays and on
      65,536 incoherent rays (t_init 0 where t_max is 0), timed there and on
@@ -59,8 +66,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      finite, non-negative and not all zero.  K7-K9 are reached through the
      ops API only (phases 3c-4d), so their main-path launches are 0;
   6. profile: one main-path tile (65,536 lanes) of the lit stress scene, of
-     doom_standin, of the lit stress scene on the flat route and of
-     doom_standin on the BVH route under torch.profiler (wall vs device-busy
+     doom_standin, of the lit stress scene on the flat route, of
+     doom_standin on the BVH route, and of dragon_standin (2 spp) on the
+     kernel and the BVH route under torch.profiler (wall vs device-busy
      time, the kernels' share, launches per bounce iteration); then each
      kernel held against its plain version and timed, as in 3/4, on the
      inputs that tile's second bounce iteration gave it;
@@ -627,27 +635,104 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
     return recs
 
 
-def repack_tris(scene, rows_per_chunk, device):
+def repack_tris(scene, bvh, rows_per_chunk, device):
     """The scene's triangle table repacked at rows_per_chunk rows per chunk,
-    over the same leaves (one table row each, read back from the table's
-    gids) and the scene's BVH-ordered triangles.  Returns (PackedTris,
-    n_chunks)."""
+    over the same BVH (bvh: the BVH route's scene.bvh of the same mesh, so
+    the same leaves and ids) and the scene's BVH-ordered triangles, with its
+    hierarchy.  Returns (PackedTris, n_chunks)."""
     import types
-
-    import numpy as np
 
     from paths_tpu_torch.ops import tri_traverse as TT
 
-    gid = scene.ptris.tris.cpu().reshape(-1, TT.PACK_LEAF, TT.TRI_STRIDE)[:, :, 12]
-    gid = gid.numpy().astype(np.int64)
-    count = (gid >= 0).sum(1)
-    leaves = count > 0
-    flat = types.SimpleNamespace(prim_count=count[leaves], prim_start=gid[leaves, 0])
+    flat = types.SimpleNamespace(**{k: getattr(bvh, k).cpu().numpy()
+                                    for k in ("prim_count", "prim_start", "miss_link")})
     f64 = lambda x: x.cpu().double().numpy()
     pt, nc = TT.pack_chunked(flat, f64(scene.tri_v0), f64(scene.tri_v1),
                              f64(scene.tri_v2), f64(scene.tri_n),
                              ent=scene.tri_ent.cpu().numpy(), rows_per_chunk=rows_per_chunk)
     return TT.PackedTris(*(x.to(device) for x in pt)), nc
+
+
+def adversarial_lanes(scene, table, n_chunks, n, n_entities, device, seed=7):
+    """n lanes that stress the walk kernels' tie and bound rules on a mesh
+    table: rays aimed exactly at triangle vertices (shared by several
+    triangles) and edge midpoints, from random points around them, a
+    quarter excluding the aimed-at triangle; an eighth with a zero
+    direction component, half of those starting exactly on a plane of the
+    hierarchy's boxes (a NaN slab distance); 1/16 dead; t_init set to the
+    lane's exact closest-hit t on a quarter of the hitting lanes (the hit
+    must not count) and t_max to its exact nearest occluder on a quarter
+    of the occluded ones, an eighth 0.  Returns ((o, d, excl, t_init),
+    (o, d, excl, excl_ent, t_max), counts)."""
+    import torch
+
+    from paths_tpu_torch.ops import tri_traverse as TT
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g).to(device)
+    v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
+    k = torch.randint(0, v0.shape[0], (n,), generator=g).to(device)
+    lane = torch.arange(n, device=device)
+    aim = torch.where((lane % 2 == 0)[:, None], v0[k], 0.5 * (v1[k] + v2[k]))
+    span = float((v0.amax(0) - v0.amin(0)).norm())
+    off = torch.randn(n, 3, generator=g).to(device)
+    o = aim + off / off.norm(dim=1, keepdim=True) * (1.0 + u(n, 1) * span / 4)
+    d = aim - o
+    flat_axis = lane % 8 == 3
+    axis = torch.randint(0, 3, (n,), generator=g).to(device)
+    d[flat_axis, axis[flat_axis]] = 0.0
+    on_plane = flat_axis & (lane % 16 == 3)
+    nodes = table.nodes
+    pick = torch.randint(0, nodes.shape[0], (n,), generator=g).to(device)
+    o[on_plane, axis[on_plane]] = nodes[pick[on_plane], axis[on_plane]]  # a box's lo
+    d = d / d.norm(dim=1, keepdim=True)
+    o[lane % 16 == 9] = 1e30
+    excl = torch.where(lane % 4 == 1, k, -1).to(torch.int32)
+    o, d = o.float().contiguous(), d.float().contiguous()
+    t_init = torch.full((n,), BIG, device=device)
+    first = TT.closest_hit_tris_plain(table, n_chunks, o, d, excl, t_init)[0]
+    exact = (lane % 4 == 2) & (first < BIG)
+    t_init = torch.where(exact, first, t_init).contiguous()
+    excl_ent = torch.randint(-1, n_entities, (n,), generator=g, dtype=torch.int32).to(device)
+    t_max = (u(n) * span).contiguous()
+    near = nearest_occluder("tri", table, n_chunks, o, d, excl, excl_ent,
+                            torch.full((n,), BIG, device=device))
+    occl_exact = (lane % 4 == 0) & (near < float("inf"))
+    t_max = torch.where(occl_exact, near, torch.where(lane % 8 == 5, 0.0, t_max)).contiguous()
+    # Lanes whose nearest hit is shared by two or more slots: exact ties.
+    f = TT._slots(table, n_chunks)
+    ties = 0
+    for a, b in TT._lane_steps(n, f["gid"].shape[0], o.device):
+        met, t = TT._row_test(f, o[a:b], d[a:b], excl[a:b], torch.full((b - a,), BIG, device=device))
+        t = torch.where(met, t, float("inf"))
+        tmin = t.amin(1, keepdim=True)
+        ties += int((((t == tmin) & met).sum(1) > 1).sum().item())
+    counts = dict(hits=int((first < BIG).sum().item()), exact_t_init=int(exact.sum().item()),
+                  exact_t_max=int(occl_exact.sum().item()), ties=ties,
+                  nan_slab=int(on_plane.sum().item()), zero_component=int(flat_axis.sum().item()))
+    return (o, d, excl, t_init), (o, d, excl, excl_ent, t_max), counts
+
+
+def hold_adversarial(label, table, n_chunks, scene, n_entities, device, n=4096):
+    """K3 and K4 against their plain versions on adversarial_lanes: equal
+    outputs, bit for bit.  Returns the largest absolute difference (0)."""
+    from paths_tpu_torch.ops import tri_traverse as TT
+
+    ch_args, ah_args, counts = adversarial_lanes(scene, table, n_chunks, n, n_entities,
+                                                 device)
+    err = check_equal(f"tri_closest_hit {label} adversarial",
+                      TT.closest_hit_tris(table, n_chunks, *ch_args),
+                      TT.closest_hit_tris_plain(table, n_chunks, *ch_args))
+    occ = TT.occludes_tris(table, n_chunks, *ah_args)
+    err = max(err, check_equal(f"tri_any_hit {label} adversarial", occ,
+                               TT.occludes_tris_plain(table, n_chunks, *ah_args)))
+    log(f"[parity] {label}: K3/K4 == plain on {n} adversarial lanes ({counts['hits']} "
+        f"hits, {counts['ties']} with an exact tie at the nearest hit, "
+        f"{counts['exact_t_init']} with t_init at the exact hit t, {counts['exact_t_max']} "
+        f"with t_max at the exact occluder t, {counts['zero_component']} with a zero "
+        f"direction component, {counts['nan_slab']} of them on a box plane; "
+        f"{int(occ.sum().item())} occluded)")
+    return err
 
 
 def tri_kernel_phases(device, scene_path, label, width=720, height=480,
@@ -690,7 +775,7 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
         f"{bscene.pbvh.tris.shape[0]} leaf rows; scene built in {time.time() - t:.1f} s")
     bound = leaf_bound(bvh)
     if scan:
-        pt, nc = repack_tris(scene, CS.TRI_ROWS_PER_CHUNK, device)
+        pt, nc = repack_tris(scene, bvh, CS.TRI_ROWS_PER_CHUNK, device)
         tables.append(("scan_tri", "K7/K9", pt, nc, CS.TRI_ROWS_PER_CHUNK))
         log(f"[build] {label} repacked: {nc} chunks of {CS.TRI_ROWS_PER_CHUNK} rows, "
             f"table {pt.tris.shape[0]} rows")
@@ -706,6 +791,9 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
     sel = torch.arange(half, device=device) * (n // half)
     cat = lambda a, b: torch.cat([a[sel], b[:half]]).contiguous()
     so, sd_, sx = cat(po, o), cat(pd, d), cat(p_excl, excl)
+    sub_ch = (so, sd_, sx, cat(p_t, t_init))
+    sub_ah = (so, sd_, sx, torch.cat([excl_ent[half:SUBSET], excl_ent[:half]]),
+              torch.cat([t_max[half:SUBSET], t_max[:half]]))
 
     recs = {}
     for kind, kernels, pt, nc, rows in tables:
@@ -719,15 +807,31 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
         log(f"[timing] {label} frame ({rows}-row chunks), {n} lanes: {ch_name} "
             f"primary {frame['primary']:.3f} ms ({hits} hits), incoherent "
             f"{frame[ch_name]:.3f} ms; {ah_name} incoherent {frame[ah_name]:.3f} ms")
-        fam = measure(kind, f"{label} subset", pt, nc, (so, sd_, sx, cat(p_t, t_init)),
-                      (so, sd_, sx, torch.cat([excl_ent[half:SUBSET], excl_ent[:half]]),
-                       torch.cat([t_max[half:SUBSET], t_max[:half]])),
-                      timer, plain_reps=False, bound=bound)
+        fam = measure(kind, f"{label} subset", pt, nc, sub_ch, sub_ah, timer,
+                      plain_reps=False, bound=bound)
         log(f"[parity] {label}: {kernels} == plain at {SUBSET} lanes x "
             f"{pt.tris.shape[0] * 8} slots ({rows}-row chunks)")
         for name, r in fam.items():
             r["frame_ms"] = frame[name]
         recs.update(fam)
+        # 3f: K3/K4 on adversarial lanes of this table; on the repacked table
+        # also on the subsets, held to K7/K9, which equal the plain versions
+        # there (one table for both).
+        err = hold_adversarial(f"{label} ({rows}-row chunks)", pt, nc, scene,
+                               static.n_entities, device)
+        if kind == "scan_tri":
+            _, (k3_name, k3, _), (k4_name, k4, _) = _families()["tri"]
+            for name, fn, scan_fn, args in ((k3_name, k3, ch, sub_ch),
+                                            (k4_name, k4, ah, sub_ah)):
+                err = max(err, check_equal(f"{name} {label} subset ({rows}-row chunks)",
+                                           fn(pt, nc, *args), scan_fn(pt, nc, *args)))
+                recs[name][f"rows{rows}_ms"] = timer(lambda: fn(pt, nc, *args))
+            log(f"[timing] {label} subset, {SUBSET} lanes, {rows}-row chunks: "
+                f"{k3_name} {recs[k3_name][f'rows{rows}_ms']:.4f} ms, {k4_name} "
+                f"{recs[k4_name][f'rows{rows}_ms']:.4f} ms (equal to K7/K9 and so to "
+                "the plain versions)")
+        for name in ("tri_closest_hit", "tri_any_hit"):
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
 
     # 3e/4e: K6 on the BVH route's table, K3 on the same rays beside it.
     _, TT, _, PK = _kernel_modules()
@@ -1173,11 +1277,20 @@ def main() -> int:
     tile.update(where_time_goes(device, "flat", "lit stress-500 flat route", flat_lit))
     tile.update(where_time_goes(device, "packet", "doom_standin BVH route",
                                 lambda: doom_bvh))
+    dragon_bvh = build_scene(load_scene_description(DRAGON), device=device,
+                             bvh_threshold=BVH_THRESHOLD)
+    dragon_tile = where_time_goes(
+        device, "tri", "dragon_standin",
+        lambda: build_scene(load_scene_description(DRAGON), device=device), spp=2,
+        bound=leaf_bound(dragon_bvh[1].bvh))
+    dragon_tile.update(where_time_goes(device, "packet", "dragon_standin BVH route",
+                                       lambda: dragon_bvh, spp=2))
     for route in ("walk", "flat", "bvh"):
         gpu_vs_cpu(device, route)
 
     # ms, plain_ms and bound_ms are at the main path's shape (one tile of
-    # bounce and shadow rays) for K1-K6; K7-K9 are off the main path, so
+    # bounce and shadow rays) for K1-K6 (dragon_tile_*: K3, K4 and K6 on
+    # dragon's tile); K7-K9 are off the main path, so
     # theirs are at the doom subset (triangles) and the incoherent stress-500
     # frame (spheres).  frame_* at a full incoherent frame (spheres) and
     # doom_*/dragon_* at the 65,536-lane subsets (triangles; their frame_ms
@@ -1194,6 +1307,9 @@ def main() -> int:
             r["max_abs_err"] = max(r["max_abs_err"], frame[name]["max_abs_err"])
             r.update(frame_ms=frame[name]["ms"], frame_plain_ms=frame[name]["plain_ms"],
                      frame_bound_ms=frame[name]["bound_ms"])
+        if name in dragon_tile:
+            r.update({f"dragon_tile_{k}": dragon_tile[name][k]
+                      for k in ("ms", "plain_ms", "bound_ms")})
         for m, rec in mesh.items():
             if name in rec:
                 r["max_abs_err"] = max(r["max_abs_err"], rec[name]["max_abs_err"])

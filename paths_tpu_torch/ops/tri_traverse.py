@@ -1,6 +1,6 @@
-"""Triangle traversal: the packed plane-form triangle table, the CUDA
-closest-hit and any-hit kernels that walk it, and their plain PyTorch
-versions.
+"""Triangle traversal: the packed plane-form triangle table with a box
+hierarchy over its rows, the CUDA closest-hit and any-hit kernels that walk
+it, and their plain PyTorch versions.
 
 Ports ``paths_tpu/ops/pallas_traverse.py::pack_chunked`` with
 ``_pack_tri_rows_plane`` and ``_leaf_map`` (bit-exact) and the triangle forms
@@ -11,32 +11,46 @@ in its triangle forms (row test ``pallas_traverse.py::_tri_row_test_v2``,
 recentring ``_chunk_shift``).  The reference's replicated table
 (``tris_rep``) is a TPU layout of the same rows and has no counterpart here.
 
-What bounds them on an H100: FP32 issue.  A (ray, slot) pair costs 32 FP32
-operations (six three-term dot products, a division, the barycentric forms
-and six comparisons) while a lane moves about 36 bytes; the tables (7.7 MB
-for 96k triangles, 18 MB for 200k) stay in the 50 MB L2.  The design is the
-sphere kernels': one thread per ray, warp-wide broadcast reads of each slot,
-a per-lane chunk slab test against the running best, and early return for
-any-hit.  The arithmetic is IEEE with exactly the fused multiply-adds that
+The hierarchy (``PackedTris.nodes``, built by ``pack_chunked`` on every
+device) is the mesh BVH's own binary tree over the table's rows, one row a
+leaf, with each box padded so that it can only keep a row: the reference
+walks its chunks front to back per ray block (``_block_cull_keys``), the
+kernels walk this tree front to back per lane, with pruning against the
+running best and a (t, table position) tie rule, so their answers equal the
+plain versions' brute force in table order.  The tree was chosen by counting
+box tests: on doom_standin and dragon_standin an implicit tree that halves
+contiguous row ranges tests 2.2-2.7 times as many boxes per ray as the BVH's
+own splits, primary and incoherent rays alike
+(``scripts/tri_hierarchy_shapes.py``).
+
+What bounds the kernels on an H100: bytes -- the function needs the
+triangles of the leaves a ray enters before its answer is settled and the
+nodes on its way, and moving those takes longer than their 32 FP32
+operations per slot -- though what holds them far from that bound is the
+chain of dependent node and slot reads per lane and the divergence of a
+warp's lanes.  The design: one thread per ray walks the tree with a short
+per-lane stack, reading nodes and slots as float4 through the read-only
+path.  The arithmetic is IEEE with exactly the fused multiply-adds that
 XLA's CPU compilation of the reference kernel contracts (see ``_row_test``),
 so the plain versions, the kernels and the reference in interpret mode agree
 bit for bit.
 
-Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches the kernel or raises -- it never falls back.  Each
-wrapper counts its kernel launches in ``LAUNCHES``.
+Dispatch: a wrapper given CPU tensors runs the plain version (which does not
+read the hierarchy); given CUDA tensors it launches the kernel or raises --
+it never falls back.  Each wrapper counts its kernel launches in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from paths_tpu_torch import native
-from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _fma, _raise_on
+from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on
 from paths_tpu_torch.ops.sphere_traverse import _check_launch as _check_table_and_lanes
 
 PACK_LEAF = 8  # triangle slots per row (one BVH leaf per row)
@@ -49,6 +63,12 @@ TRI_STRIDE = 16  # floats per slot
 ROWS_PER_CHUNK = 8
 ROWS_PER_CHUNK_LARGE = 20
 REPACK_BYTES = 10 * 1024 * 1024
+# The hierarchy: floats per node ([lo.xyz ref | hi.xyz aux]), the relative
+# pad of a row box (csrc/row_tests.cuh kBoxPad) and the kernels' walk stack
+# (csrc/tri_traverse.cu kStack), which bounds the tree's depth.
+NODE_FLOATS = 8
+BOX_PAD = 1e-4
+WALK_STACK = 64
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"tri_closest_hit": 0, "tri_any_hit": 0}
@@ -63,6 +83,16 @@ class PackedTris(NamedTuple):
     tris: torch.Tensor  # (R, 128) f32 rows of 8 plane-form slots
     chunk_meta: torch.Tensor  # (Cpad, 128) f32: [lo.xyz, hi.xyz, row0, nrows, row boxes]
     tri_ent: torch.Tensor  # (T,) int32 triangle -> entity
+    # (M, NODE_FLOATS) f32, the box hierarchy over the rows that the kernels
+    # walk (_row_hierarchy); the reference has none.  None only for a table
+    # rebuilt from the reference's arrays (scene/types.py::scene_from_numpy):
+    # the plain versions do not read it, the kernels refuse a table without it.
+    nodes: Optional[torch.Tensor] = None
+
+
+# The fields that the reference's table (pallas_traverse.py::ChunkedTris) has
+# too, bit for bit.
+REFERENCE_FIELDS = ("tris", "chunk_meta", "tri_ent")
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +159,65 @@ def _pack_rows(flat, v0, v1, v2, n, ent, centers, rows_per_chunk, rpad):
     return rows
 
 
+def _row_hierarchy(flat, row_lo, row_hi, rows_per_chunk):
+    """The kernels' box hierarchy over the table's rows: the BVH's own binary
+    tree (``flat``: prim_count and miss_link in preorder, one leaf per row),
+    one node per BVH node in the same order, as (M, NODE_FLOATS) f32 rows
+    [lo.xyz ref | hi.xyz aux].  An inner node has ref = its left child (the
+    next node in preorder) and aux = its right child (the left child's miss
+    link); a leaf has ref = -1 - row and aux = the row's chunk.  A leaf's box
+    is its row's f32 box (row_lo, row_hi) padded by kBoxPad's rule, pad =
+    BOX_PAD * (|lo| + |hi| + (hi - lo)) + 1e-6 per axis in f32, an inner
+    node's the union of its children's, so a node can only keep a row.
+    Raises if the tree needs more than WALK_STACK stack entries."""
+    count = np.asarray(flat.prim_count)
+    leaf = count > 0
+    n_leaves = int(leaf.sum())
+    row_lo, row_hi = row_lo[:n_leaves], row_hi[:n_leaves]
+    pad = np.float32(BOX_PAD) * (np.abs(row_lo) + np.abs(row_hi) + (row_hi - row_lo)) \
+        + np.float32(1e-6)
+    m = len(count)
+    inner = np.nonzero(~leaf)[0]
+    left = inner + 1
+    right = np.asarray(flat.miss_link)[left]
+    if n_leaves == 0 or m != 2 * n_leaves - 1 or not (right > left).all():
+        raise ValueError("the BVH is not a binary tree in preorder")
+    parent = np.full(m, -1, np.int64)
+    parent[left] = inner
+    parent[right] = inner
+    depth = np.zeros(m, np.int64)
+    for _ in range(m):  # parents precede their children in preorder
+        nxt = np.where(parent >= 0, depth[parent] + 1, 0)
+        if (nxt == depth).all():
+            break
+        depth = nxt
+    if depth.max() > WALK_STACK:
+        raise ValueError(f"the BVH is {depth.max() + 1} levels deep; the kernels' "
+                         f"walk stack holds {WALK_STACK} inner levels")
+    lo = np.zeros((m, 3), np.float32)
+    hi = np.zeros((m, 3), np.float32)
+    rows = np.arange(n_leaves)  # leaves in preorder are the rows in order
+    lo[leaf] = row_lo - pad
+    hi[leaf] = row_hi + pad
+    ref = np.zeros(m, np.float32)
+    aux = np.zeros(m, np.float32)
+    ref[leaf], aux[leaf] = -1 - rows, rows // rows_per_chunk
+    ref[inner], aux[inner] = left, right
+    right_of = np.zeros(m, np.int64)
+    right_of[inner] = right
+    for level in range(int(depth.max()) - 1, -1, -1):  # children before parents
+        ids = inner[depth[inner] == level]
+        lo[ids] = np.minimum(lo[ids + 1], lo[right_of[ids]])
+        hi[ids] = np.maximum(hi[ids + 1], hi[right_of[ids]])
+    return np.concatenate([lo, ref[:, None], hi, aux[:, None]], axis=1)
+
+
 def pack_chunked(flat, v0, v1, v2, n, ent=None,
                  rows_per_chunk: int = ROWS_PER_CHUNK):
     """The BVH's leaf rows (one leaf of at most 8 triangles per row; v0, v1,
-    v2, n in ``flat.order``) cut into chunks of rows_per_chunk rows.
-    Returns (PackedTris on the CPU, n_chunks).
+    v2, n in ``flat.order``) cut into chunks of rows_per_chunk rows, and the
+    hierarchy over them (_row_hierarchy).  Returns (PackedTris on the CPU,
+    n_chunks).
 
     Meta row: [0:6] chunk box lo/hi, [6] first row, [7] row count, and, when
     rows_per_chunk <= 15, [8 : 8+8*rows] per-row boxes (lo, hi, 0, 0); rows
@@ -176,9 +260,11 @@ def pack_chunked(flat, v0, v1, v2, n, ent=None,
     tris = _pack_rows(flat, v0, v1, v2, n, ent_rows, centers, rows_per_chunk, rpad)
     tri_ent = (np.zeros(max(T, 1), np.int32) if ent is None
                else np.asarray(ent, np.int32))
+    nodes = _row_hierarchy(flat, row_lo, row_hi, rows_per_chunk)
     packed = PackedTris(tris=torch.from_numpy(_pad8(tris)),
                         chunk_meta=torch.from_numpy(_pad8(meta)),
-                        tri_ent=torch.from_numpy(tri_ent))
+                        tri_ent=torch.from_numpy(tri_ent),
+                        nodes=torch.from_numpy(nodes))
     return packed, n_chunks
 
 
@@ -303,20 +389,29 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         lib = native.load_library("tri_traverse.cu", native.nvcc(),
                                   native.NVCC_FLAGS, verbose)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tri_closest_hit.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p]
+        lib.tri_closest_hit.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p]
         lib.tri_closest_hit.restype = i
-        lib.tri_any_hit.argtypes = [p, p, i, p, p, p, p, p, i, p, p]
+        lib.tri_any_hit.argtypes = [p, p, p, p, p, p, p, p, i, p, p]
         lib.tri_any_hit.restype = i
         _lib = lib
     return _lib
 
 
 def _check_launch(pt: PackedTris, n_chunks, o, d, excl_idx, lane_args):
-    """The sphere kernels' launch checks, and the table's alignment."""
+    """The sphere kernels' launch checks, and what the walk reads besides:
+    the hierarchy, (M, NODE_FLOATS) f32 rows on o's device, contiguous, and
+    the table, meta and nodes 16-byte aligned (read as float4)."""
     _check_table_and_lanes(pt, n_chunks, o, d, excl_idx, lane_args)
-    if pt.tris.data_ptr() % 16:
-        raise ValueError("tris must be 16-byte aligned (the kernel reads "
-                         "slots as float4)")
+    if pt.nodes is None:
+        raise ValueError("the table has no hierarchy (nodes): pack it with "
+                         "pack_chunked")
+    _check("nodes", pt.nodes, torch.float32, (pt.nodes.shape[0], NODE_FLOATS), o.device)
+    if pt.nodes.shape[0] == 0:
+        raise ValueError("the hierarchy has no root")
+    for name, x in (("tris", pt.tris), ("chunk_meta", pt.chunk_meta), ("nodes", pt.nodes)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
+                             "float4)")
 
 
 def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
@@ -337,7 +432,7 @@ def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
         return t, gid, ent
     lib = build_kernels()
     err = lib.tri_closest_hit(
-        pt.tris.data_ptr(), pt.chunk_meta.data_ptr(), n_chunks,
+        pt.tris.data_ptr(), pt.chunk_meta.data_ptr(), pt.nodes.data_ptr(),
         o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
         t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,
@@ -363,7 +458,7 @@ def occludes_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max
         return occ
     lib = build_kernels()
     err = lib.tri_any_hit(
-        pt.tris.data_ptr(), pt.chunk_meta.data_ptr(), n_chunks,
+        pt.tris.data_ptr(), pt.chunk_meta.data_ptr(), pt.nodes.data_ptr(),
         o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), excl_ent.data_ptr(),
         t_max.data_ptr(), n, occ.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,

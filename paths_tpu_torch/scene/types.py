@@ -29,7 +29,7 @@ import torch
 
 from paths_tpu_torch.ops.packet_traverse import PackedBvh
 from paths_tpu_torch.ops.sphere_traverse import PackedSpheres
-from paths_tpu_torch.ops.tri_traverse import PackedTris
+from paths_tpu_torch.ops.tri_traverse import REFERENCE_FIELDS, PackedTris
 from paths_tpu_torch.sky import Sky
 
 
@@ -164,8 +164,10 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
     sky, ``psph.tris``/``psph.chunk_meta`` for the packed sphere table and
     ``ptris.tris``/``ptris.chunk_meta``/``ptris.tri_ent`` for the packed
     triangle table (the reference's replicated table is not read) and
-    ``bvh.<field>`` for the BVH arrays.  ``pbvh`` stays None: the K6 table
-    is packed from the f64 triangles, which only the scene build has.
+    ``bvh.<field>`` for the BVH arrays.  ``pbvh`` and ``ptris.nodes`` stay
+    None: the K6 table is packed from the f64 triangles and the triangle
+    kernels' hierarchy from the BVH's tree, which only the scene build has,
+    and the plain versions that the CPU runs read neither.
     Returns (SceneStatic, SceneArrays) on ``device``."""
     names = {f.name for f in dataclasses.fields(SceneStatic)}
     kw = {}
@@ -196,7 +198,7 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
             )
         elif name == "ptris":
             fields[name] = (
-                PackedTris(*(tensor(arrays[f"ptris.{f}"]) for f in PackedTris._fields))
+                PackedTris(*(tensor(arrays[f"ptris.{f}"]) for f in REFERENCE_FIELDS))
                 if "ptris.tris" in arrays else None
             )
         elif name == "bvh":

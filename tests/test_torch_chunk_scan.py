@@ -170,7 +170,7 @@ def _tri_tables(soup, rows):
 @pytest.mark.parametrize("rows", [4, CS.TRI_ROWS_PER_CHUNK])
 def test_tri_pack_bit_exact(soup, rows):
     ct, pt, _ = _tri_tables(soup, rows)
-    for f in TT.PackedTris._fields:
+    for f in TT.REFERENCE_FIELDS:
         g, w = getattr(pt, f).numpy(), np.asarray(getattr(ct, f))
         assert g.dtype == w.dtype, f
         np.testing.assert_array_equal(g, w, err_msg=f)

@@ -15,6 +15,7 @@ from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
+from tri_walk_cases import ties_case
 
 torch.set_num_threads(2)
 
@@ -152,6 +153,38 @@ def test_tri_wrapper_raises_instead_of_falling_back(dev):
         TT.closest_hit_tris(pt, nc, o, d, excl.long(), t_init)
     with pytest.raises(ValueError):
         TT.closest_hit_tris(pt, nc, o, d, excl, t_init.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [TT.ROWS_PER_CHUNK, TT.ROWS_PER_CHUNK_LARGE])
+def test_tri_kernels_hold_exact_ties_and_bounds(dev, rows):
+    """The walk kernels on a table of duplicated triangles whose ties are
+    exact (tests/tri_walk_cases.py), with t_init and t_max set to exact hit
+    distances on some lanes: equal to the plain versions bit for bit."""
+    (flat, v0, v1, v2, n, ent), lanes = ties_case(rows, 13)
+    pt, nc = TT.pack_chunked(flat, v0, v1, v2, n, ent=ent, rows_per_chunk=rows)
+    pt = TT.PackedTris(*(x.to(dev) for x in pt))
+    o, d, excl, t_init, excl_ent, t_max = (torch.as_tensor(np.array(a), device=dev)
+                                           for a in lanes)
+    first = TT.closest_hit_tris_plain(pt, nc, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
+    lane = torch.arange(o.shape[0], device=dev)
+    t_init = torch.where((lane % 3 == 0) & (first < 3.4e38), first, t_init).contiguous()
+    t_max = torch.where((lane % 3 == 1) & (first < 3.4e38), first, t_max).contiguous()
+    got = TT.closest_hit_tris(pt, nc, o, d, excl, t_init)
+    for g, w in zip(got, TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    occ = TT.occludes_tris(pt, nc, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max))
+    assert int((got[0] < 3.4e38).sum()) > o.shape[0] // 4 and int(occ.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_tri_wrapper_refuses_a_table_without_hierarchy(dev):
+    pt, nc, (o, d, excl, t_init, excl_ent, t_max) = _mesh_and_rays(dev, 3000)
+    with pytest.raises(ValueError, match="hierarchy"):
+        TT.closest_hit_tris(pt._replace(nodes=None), nc, o, d, excl, t_init)
+    with pytest.raises(ValueError):
+        TT.occludes_tris(pt._replace(nodes=pt.nodes.cpu()), nc, o, d, excl, excl_ent, t_max)
 
 
 # ---- K5 (flat spheres) and K7-K9 (linear chunk scan) ----

@@ -16,9 +16,19 @@ The lanes: rays aimed inside random triangles and exactly at their edges
 parallel to axis-aligned triangles (t = +-inf), dead lanes,
 exclusions, a band of finite t_init, random excl_ent and t_max == 0 lanes.
 
+The kernels walk a box hierarchy over the table's rows (``PackedTris.nodes``)
+front to back; the tests below hold the hierarchy's boxes and shape, and a
+Python emulation of the kernels' walk (the same stack, pruning and tie rule,
+in f32) against the plain versions, bit for bit: on the soup, on a table of
+duplicated triangles whose ties are exact, and on doom_standin's table, at 8
+and 20 rows a chunk.
+
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there.
 """
+
+import os
+import types
 
 import numpy as np
 import pytest
@@ -33,7 +43,13 @@ from paths_tpu.ops.sorted_traverse import (
     replicate_tris,
 )
 
+from paths_tpu_torch.bvh.build import build_bvh as port_bvh
 from paths_tpu_torch.ops import tri_traverse as TT
+from paths_tpu_torch.scene import build as TB
+from paths_tpu_torch.scene import models as TM
+from paths_tpu_torch.scene.ply_loader import load_ply_file
+from paths_tpu_torch.scene.yaml_loader import load_scene_description
+from tri_walk_cases import BIG, ties_case, walk
 
 torch.set_num_threads(2)
 
@@ -100,7 +116,7 @@ def test_pack_bit_exact(soup, rows):
     want, wn = jax_pack(flat, v0, v1, v2, n, ent=ents, rows_per_chunk=rows)
     got, gn = TT.pack_chunked(flat, v0, v1, v2, n, ent=ents, rows_per_chunk=rows)
     assert gn == wn
-    for f in TT.PackedTris._fields:
+    for f in TT.REFERENCE_FIELDS:
         g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
         assert g.dtype == w.dtype, f
         np.testing.assert_array_equal(g, w, err_msg=f)
@@ -189,3 +205,198 @@ def test_launch_checks_reject_bad_inputs(soup):
     misaligned = pt._replace(tris=torch.zeros(pt.tris.numel() + 1)[1:].view(-1, 128))
     with pytest.raises(ValueError, match="aligned"):
         TT._check_launch(misaligned, nc, o, d, excl, seed)
+
+
+# ---------------------------------------------------------------- the hierarchy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _doom(n_lanes=96, seed=5):
+    """doom_standin's triangles, BVH-ordered by the port's builder, and
+    lanes: rays from above the terrain aimed exactly at vertices (shared by
+    up to six triangles) and at edge midpoints, excluding the aimed-at
+    triangle on some; rays with a zero direction component; incoherent rays
+    from inside the box; dead lanes; excl_ent and t_max (some 0)."""
+    sd = load_scene_description(os.path.join(REPO, "scenes", "doom_standin.yml"))
+    ply = load_ply_file(os.path.join(REPO, "scenes", "assets", "doom_standin.ply"))
+    tri = TB._mesh_triangles(sd.objects[0].mesh, TM.Model(ply.vertices, ply.faces), ent=0)
+    lo = np.minimum(np.minimum(tri["v0"], tri["v1"]), tri["v2"])
+    hi = np.maximum(np.maximum(tri["v0"], tri["v1"]), tri["v2"])
+    flat = port_bvh(lo, hi)
+    v0, v1, v2, n = (tri[k][flat.order] for k in ("v0", "v1", "v2", "n"))
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, len(v0), n_lanes)
+    aim = np.where((np.arange(n_lanes) % 2 == 0)[:, None], v0[k], 0.5 * (v1[k] + v2[k]))
+    o = aim + rng.uniform(-300, 300, (n_lanes, 3)) + [0.0, 400.0, 0.0]
+    d = aim - o
+    d[1::9, 0] = 0.0  # a zero component (the aim is then approximate)
+    d[2::9, 2] = 0.0
+    inc = np.arange(n_lanes) % 6 == 5
+    o[inc] = lo.min(0) + rng.uniform(size=(int(inc.sum()), 3)) * (hi.max(0) - lo.min(0))
+    d[inc] = rng.normal(size=(int(inc.sum()), 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    o[7::13] = 1e30  # dead lanes
+    excl = np.where(np.arange(n_lanes) % 4 == 1, k, -1).astype(np.int32)
+    t_init = np.full(n_lanes, BIG, np.float32)
+    excl_ent = rng.integers(-1, N_ENT, n_lanes).astype(np.int32)
+    t_max = np.where(np.arange(n_lanes) % 10 == 3, 0.0,
+                     rng.uniform(100, 2000, n_lanes)).astype(np.float32)
+    ent = np.arange(len(v0)) % N_ENT
+    return (flat, v0, v1, v2, n, ent), (o, d, excl, t_init, excl_ent, t_max)
+
+
+@pytest.fixture(scope="module")
+def doom():
+    return _doom()
+
+
+@pytest.fixture(scope="module")
+def ties():
+    return {rows: ties_case(rows, N_ENT) for rows in (TT.ROWS_PER_CHUNK, TT.ROWS_PER_CHUNK_LARGE)}
+
+
+def _case(request, which, rows):
+    """(flat, (v0, v1, v2, n, ent), PackedTris, n_chunks, lanes) of one
+    case."""
+    if which == "soup":
+        flat, v0, v1, v2, n, ent = _soup()
+        lanes = request.getfixturevalue("soup")[2]
+    elif which == "ties":
+        (flat, v0, v1, v2, n, ent), lanes = request.getfixturevalue("ties")[rows]
+    else:
+        (flat, v0, v1, v2, n, ent), lanes = request.getfixturevalue("doom")
+    pt, nc = TT.pack_chunked(flat, v0, v1, v2, n, ent=ent, rows_per_chunk=rows)
+    return flat, (v0, v1, v2, n, ent), pt, nc, lanes
+
+
+CASES = [(w, r) for w in ("soup", "ties", "doom")
+         for r in (TT.ROWS_PER_CHUNK, TT.ROWS_PER_CHUNK_LARGE)]
+
+
+@pytest.mark.parametrize("which,rows", CASES)
+def test_hierarchy_boxes_hold_their_rows(request, which, rows):
+    """The hierarchy is the BVH's binary tree over the rows: each row a leaf
+    exactly once (with its chunk), a leaf's box its row's f32 box padded by
+    the kernels' rule, an inner node's the union of its children's, so every
+    node's box contains the padded boxes of all the rows below it; and
+    packing again gives the same bytes."""
+    flat, (v0, v1, v2, n, ent), pt, nc, _ = _case(request, which, rows)
+    nodes = pt.nodes.numpy()
+    ref, aux = nodes[:, 3].astype(np.int64), nodes[:, 7].astype(np.int64)
+    leaf = ref < 0
+    n_rows = int((flat.prim_count > 0).sum())
+    assert nodes.shape == (2 * n_rows - 1, TT.NODE_FLOATS)
+    np.testing.assert_array_equal(-1 - ref[leaf], np.arange(n_rows))  # in preorder
+    np.testing.assert_array_equal(aux[leaf], (-1 - ref[leaf]) // rows)
+    inner = np.nonzero(~leaf)[0]
+    np.testing.assert_array_equal(ref[inner], inner + 1)
+    np.testing.assert_array_equal(aux[inner], flat.miss_link[inner + 1])
+    parent = np.full(len(nodes), -1)
+    parent[ref[inner]] = parent[aux[inner]] = inner
+    assert (parent[1:] >= 0).all() and parent[0] == -1
+
+    # Row boxes from the triangles, padded by the rule of row_tests.cuh.
+    rows_of = TT._leaf_map(flat, len(v0))[0]
+    tlo = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
+    thi = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
+    rlo = np.full((n_rows, 3), np.inf, np.float32)
+    rhi = np.full((n_rows, 3), -np.inf, np.float32)
+    np.minimum.at(rlo, rows_of, tlo)
+    np.maximum.at(rhi, rows_of, thi)
+    pad = np.float32(TT.BOX_PAD) * (np.abs(rlo) + np.abs(rhi) + (rhi - rlo)) + np.float32(1e-6)
+    lrow = -1 - ref[leaf]
+    np.testing.assert_array_equal(nodes[leaf, 0:3], (rlo - pad)[lrow])
+    np.testing.assert_array_equal(nodes[leaf, 4:7], (rhi + pad)[lrow])
+    np.testing.assert_array_equal(nodes[inner, 0:3],
+                                  np.minimum(nodes[ref[inner], 0:3], nodes[aux[inner], 0:3]))
+    np.testing.assert_array_equal(nodes[inner, 4:7],
+                                  np.maximum(nodes[ref[inner], 4:7], nodes[aux[inner], 4:7]))
+    node = np.nonzero(leaf)[0]
+    box_lo, box_hi = nodes[node, 0:3], nodes[node, 4:7]
+    while (node >= 0).any():  # every ancestor holds the leaf's padded box
+        up = node >= 0
+        assert (nodes[node[up], 0:3] <= box_lo[up]).all()
+        assert (nodes[node[up], 4:7] >= box_hi[up]).all()
+        node = np.where(up, parent[np.maximum(node, 0)], -1)
+    again, _ = TT.pack_chunked(flat, v0, v1, v2, n, ent=ent, rows_per_chunk=rows)
+    assert again.nodes.numpy().tobytes() == nodes.tobytes()
+
+
+def test_hierarchy_deeper_than_the_stack_is_refused():
+    """A tree that needs more stack entries than the kernels hold is refused
+    at pack time: a chain of inner nodes, each with a leaf on its left, is
+    packed at WALK_STACK inner levels and refused at one more."""
+    def chain(levels):
+        # Preorder: inner node 2i, its leaf 2i + 1, its right child 2i + 2.
+        count = np.zeros(2 * levels + 1, np.int64)
+        count[1::2] = count[-1] = 1
+        miss = np.full(2 * levels + 1, -1)
+        miss[1::2] = np.arange(2, 2 * levels + 1, 2)
+        flat = types.SimpleNamespace(prim_count=count, prim_start=np.cumsum(count) - count,
+                                     miss_link=miss)
+        v0 = np.random.default_rng(0).uniform(-1, 1, (levels + 1, 3))
+        return flat, v0, v0 + [0.1, 0, 0], v0 + [0, 0.1, 0], np.tile([0.0, 0.0, 1.0], (levels + 1, 1))
+
+    pt, _ = TT.pack_chunked(*chain(TT.WALK_STACK))
+    assert pt.nodes.shape[0] == 2 * TT.WALK_STACK + 1
+    with pytest.raises(ValueError, match="stack"):
+        TT.pack_chunked(*chain(TT.WALK_STACK + 1))
+
+
+@pytest.mark.parametrize("which,rows", CASES)
+def test_walk_emulation_equals_plain(request, which, rows):
+    """The kernels' walk, emulated lane by lane (walk()), equals the plain
+    versions' brute force bit for bit: closest hit (t, gid, ent) and the
+    occluded flag.  Besides the case's own lanes: t_init set to a lane's
+    exact hit t (the hit must not count), and t_max to its nearest
+    occluder's t.  On the ties table the tie rule must have been taken."""
+    _, _, pt, nc, lanes = _case(request, which, rows)
+    o, d, excl, t_init, excl_ent, t_max = (torch.from_numpy(np.array(a)) for a in lanes)
+    f = TT._slots(pt, nc)
+    met, t = TT._row_test(f, o, d, excl, torch.full_like(t_init, float("inf")))
+    first = torch.where(met, t, float("inf")).amin(1)  # each lane's nearest hit
+    exact = (torch.arange(len(o)) % 5 == 2) & (first < float("inf"))
+    t_init = torch.where(exact, first, t_init)
+    t_max = torch.where((torch.arange(len(o)) % 5 == 4) & (first < float("inf")), first, t_max)
+    want = TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)
+    occ = TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max)
+    nodes = pt.nodes.numpy()
+    met, t, gid, ent = met.numpy(), t.numpy(), f["gid"].numpy(), f["ent"].numpy()
+    o, d = o.numpy(), d.numpy()
+    ties = 0
+    for i in range(len(o)):
+        w = walk(nodes, met[i], t[i], o[i], d[i], t_init[i].item())
+        assert w.depth <= TT.WALK_STACK
+        ties += w.ties
+        got = (np.float32(w.t if w.t < t_init[i].item() else BIG),
+               gid[w.pos] if w.pos >= 0 else 0, ent[w.pos] if w.pos >= 0 else 0)
+        assert got[0].tobytes() == want[0][i].numpy().tobytes(), i
+        assert got[1:] == (want[1][i].item(), want[2][i].item()), i
+        w = walk(nodes, met[i], t[i], o[i], d[i], t_max[i].item(), ent=ent,
+                 excl_ent=excl_ent[i].item())
+        assert (w.t == 0) == occ[i].item(), i
+    hits = int((want[0] < BIG).sum())
+    assert hits > len(o) // 4 and int(occ.sum()) > len(o) // 8
+    assert int(exact.sum()) > 0 and not (want[0][exact] < BIG).any()
+    if which == "ties":
+        assert ties > 20  # a later row's hit replaced by an earlier row's tie
+
+
+def test_launch_checks_reject_a_bad_hierarchy(soup):
+    """The launch checks refuse a table without a hierarchy and one of the
+    wrong dtype, width or alignment."""
+    _, pt, nc = _tables(soup, TT.ROWS_PER_CHUNK)
+    o, d, excl, t_init, _, _ = (torch.from_numpy(a) for a in soup[2])
+    seed = [("t_init", t_init, torch.float32)]
+    TT._check_launch(pt, nc, o, d, excl, seed)  # well-formed: no raise
+    with pytest.raises(ValueError, match="hierarchy"):
+        TT._check_launch(pt._replace(nodes=None), nc, o, d, excl, seed)
+    with pytest.raises(TypeError):
+        TT._check_launch(pt._replace(nodes=pt.nodes.double()), nc, o, d, excl, seed)
+    with pytest.raises(ValueError):
+        TT._check_launch(pt._replace(nodes=pt.nodes[:, :6].contiguous()), nc, o, d, excl, seed)
+    misaligned = torch.zeros(pt.nodes.numel() + 1)[1:].view(-1, TT.NODE_FLOATS)
+    with pytest.raises(ValueError, match="aligned"):
+        TT._check_launch(pt._replace(nodes=misaligned), nc, o, d, excl, seed)
