@@ -18,15 +18,22 @@ Phases, one line each (any failure exits non-zero before the last line):
      each kernel and its plain version, beside its bound: the larger of the
      needed bytes over 3.35 TB/s and FP32 operations per needed (ray, slot)
      pair over the FP32 peak SMs x 128 x max SM clock (an FMA counts as one).
-     A chunk is needed when some lane enters its box before the lane's answer
-     is settled: its closest hit, its nearest occluder or the end of its ray.
-     The needed pairs are those chunks' slots for each such lane; the needed
-     bytes are those chunks' rows and meta rows, read once, and the lanes'
-     inputs and outputs;
+     A leaf of K1's tree over the slots (at most 4 slots, the finest
+     division of the same rows) is needed when some lane enters its box
+     before the lane's answer is settled: its closest hit, its nearest
+     occluder or the end of its ray.  The needed pairs are those leaves'
+     slots for each such lane; the needed bytes are those slots and the
+     tree nodes some lane enters, read once, and the lanes' inputs and
+     outputs;
+  3g. K1/K2 held equal to their plain versions on 4,096 adversarial lanes of
+     the stress-500 table: rays aimed exactly at sphere centres and grazing
+     spheres (the discriminant within rounding of 0), t_init and t_max at a
+     lane's exact hit and occluder distances, t_max == 0, dead lanes, zero
+     direction components, origins on a plane of the tree's boxes;
   3c/4c. the same for K5 (the flat kernels) on the same table and frames,
      and for K8 and K9's sphere form on the stress-500 spheres packed at 16
      rows per chunk; a bound belongs to the function, so K5's and K8/K9's
-     are K1/K2's (counted on the scene's 2-row chunks of the same rows);
+     are K1/K2's (counted on the leaves of K1's tree over the same rows);
   3b/4b. parity and timing, triangles: K3/K4 on the doom_standin table (96k
      triangles, 8 rows per chunk) and the dragon_standin table (200k, 20 rows
      per chunk).  The kernels are timed on full 720x480 frames of primary
@@ -44,8 +51,10 @@ Phases, one line each (any failure exits non-zero before the last line):
      dead lanes, zero direction components, origins on a box plane;
   3e/4e. K6 on the BVH route's table of each mesh scene (the same BVH and
      leaves): held equal to its plain version on 65,536 primary rays and on
-     65,536 incoherent rays (t_init 0 where t_max is 0), timed there and on
-     both full frames, with K3 timed on the same rays beside it.  Every
+     65,536 incoherent rays (t_init 0 where t_max is 0), on both full
+     frames and on 4,096 adversarial lanes (as 3f's, with origins on planes
+     of K6's tree and t_init at K6's own exact hit distances), timed on the
+     subsets and frames, with K3 timed on the same rays beside it.  Every
      triangle kernel is bounded on the BVH's leaves of at most 8 triangles,
      the finest division of the same rows: the needed pairs (the 8 slots of
      each leaf a lane enters before its answer) and the needed bytes (those
@@ -77,7 +86,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      with the plain versions on the CPU, must agree to relative MSE < 1e-4:
      with 40 spheres on the walk route (K1-K4) and on the flat route (K5,
      K3, K4), and with 8 spheres on the BVH route (bvh_threshold=64: K6 on
-     the card, bvh/traverse.py's walk on the CPU).
+     the card, its plain version on the CPU; each of the card's K6 queries
+     held bit for bit against the plain version on its inputs).
 Then a JSON line of per-kernel results (ms, plain_ms and bound_ms at the main
 path's tile for K1-K6; at the doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
@@ -111,10 +121,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # and a dot product, 18; bx, by's multiplies, 2; bz's subtractions, 2; nine
 # comparisons).
 OPS_PER_PAIR = {"sphere": 25, "tri": 32, "vtri": 53}
-SLOTS_PER_ROW = {"sphere": 16, "tri": 8}
 ROW_BYTES = 512  # a table, meta or node row of 128 floats
 SLOT_BYTES = 64  # a triangle slot of 16 floats (both triangle layouts)
 NODE_BYTES = 40  # a node's box, links, first primitive and count (10 floats)
+SPHERE_SLOT_BYTES = 32  # a sphere slot of 8 floats
+TREE_NODE_BYTES = 32  # a walk node [lo.xyz ref | hi.xyz aux]
 BIG = 3.4e38
 SUBSET = 65536  # lanes held against the plain triangle versions
 BVH_THRESHOLD = 32768  # build_scene's bvh_threshold for the BVH route (the reference's default)
@@ -319,36 +330,58 @@ def needed_work(lo, hi, slots, o, d, t_answer):
     return total, entered
 
 
-def chunk_bound(meta, n_chunks, slots_per_row):
-    """The bound's work counted on a chunked table: bound(o, d, t_answer) ->
-    (pairs, table_bytes), the slots of the needed chunks and the rows and
-    meta rows of those chunks, each read once (512 B a row)."""
-    meta = meta[:n_chunks]
+def leaf_bound(pbvh):
+    """The bound's work counted on the skip-link BVH's leaves of at most 8
+    triangles (the BVH route's K6 table: pbvh.nodes holds each node's box
+    and triangle count, one row for each of pbvh.tree's): the prim_count
+    triangles of each needed leaf, and as bytes those triangles' slots (64
+    B each) and the 10 floats a walk reads of every needed node, inner or
+    leaf (box, links, first primitive and count: 40 B), each read once.  The
+    leaves are the triangle table's rows in both routes, so this bounds
+    K3/K4 and K6 alike."""
+    nodes = pbvh.nodes[: pbvh.tree.shape[0]]
+    count = nodes[:, 9]
 
     def bound(o, d, t_answer):
-        nrows = meta[:, 7]
-        pairs, entered = needed_work(meta[:, 0:3], meta[:, 3:6], nrows * slots_per_row,
-                                     o, d, t_answer)
-        return pairs, int(((nrows + 1) * entered).sum().item()) * ROW_BYTES
+        pairs, entered = needed_work(nodes[:, 0:3], nodes[:, 3:6], count, o, d, t_answer)
+        tris = int(count[entered].sum().item())
+        return pairs, tris * SLOT_BYTES + int(entered.sum().item()) * NODE_BYTES
     return bound
 
 
-def leaf_bound(bvh):
-    """The bound's work counted on the skip-link BVH's leaves of at most 8
-    triangles (scene.bvh of the BVH route): the prim_count triangles of each
-    needed leaf, and as bytes those triangles' slots (64 B each) and the 10
-    floats a walk reads of every needed node, inner or leaf (box, links,
-    first primitive and count: 40 B), each read once.  The leaves are the
-    triangle table's rows in both routes, so this bounds K3/K4 and K6
-    alike."""
+def sphere_leaf_bound(ps):
+    """The bound's work counted on the leaves of K1's tree over the sphere
+    slots (ps.nodes: at most 4 slots a leaf, the finest division of the same
+    rows), for every sphere kernel: each needed leaf's slots, and as bytes
+    those slots (32 B each) and the 32 B of every node some lane enters,
+    each read once.  A node's box here is unpadded: a leaf's, its spheres'
+    box (centre -+ sqrt(r^2)); an inner node's, the union of its
+    children's."""
+    import numpy as np
     import torch
 
-    slots = bvh.prim_count.to(torch.float32)
+    nodes = ps.nodes.cpu().numpy()
+    slots = ps.tris.cpu().numpy().reshape(-1, 8).astype(np.float64)
+    rad = np.sqrt(np.maximum(slots[:, 3], 0.0))[:, None]
+    slo, shi = slots[:, 0:3] - rad, slots[:, 0:3] + rad
+    ref, aux = nodes[:, 3].astype(np.int64), nodes[:, 7].astype(np.int64)
+    m = len(nodes)
+    lo, hi, count = np.zeros((m, 3)), np.zeros((m, 3)), np.zeros(m)
+    for i in range(m - 1, -1, -1):  # children after parents in preorder
+        if ref[i] < 0:
+            a = -1 - ref[i]
+            lo[i], hi[i], count[i] = slo[a:a + aux[i]].min(0), shi[a:a + aux[i]].max(0), aux[i]
+        else:
+            lo[i] = np.minimum(lo[ref[i]], lo[aux[i]])
+            hi[i] = np.maximum(hi[ref[i]], hi[aux[i]])
+    dev = ps.tris.device
+    lo, hi, count = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                     for x in (lo, hi, count))
 
     def bound(o, d, t_answer):
-        pairs, entered = needed_work(bvh.node_min, bvh.node_max, slots, o, d, t_answer)
-        tris = int(bvh.prim_count[entered].sum().item())
-        return pairs, tris * SLOT_BYTES + int(entered.sum().item()) * NODE_BYTES
+        pairs, entered = needed_work(lo, hi, count, o, d, t_answer)
+        used = int(count[entered].sum().item()) * SPHERE_SLOT_BYTES
+        return pairs, used + int(entered.sum().item()) * TREE_NODE_BYTES
     return bound
 
 
@@ -505,8 +538,7 @@ def _families():
     }
 
 
-def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True,
-            bound=None):
+def measure(kind, label, table, nc, ch_args, ah_args, timer, bound, plain_reps=True):
     """Hold the closest-hit and any-hit kernels of one family (a key of
     _families()) against their plain versions on these inputs (equal outputs),
     time both, and bound both by the work these inputs need.  ch_args = (o,
@@ -514,13 +546,12 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, plain_reps=True,
     versions are timed like the kernels (plain_reps) or, for the triangle
     brute force, once.  The bound belongs to the function, not to the table
     the kernel reads: bound(o, d, t_answer) -> (pairs, table_bytes) counts
-    it on the finest division of the same rows (default: the kernel's own
-    chunks).  Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
+    it on the finest division of the same rows (sphere_leaf_bound,
+    leaf_bound).  Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
     bound_by)}."""
     import torch
 
     rows, (ch_name, ch, ch_plain), (ah_name, ah, ah_plain) = _families()[kind]
-    bound = bound or chunk_bound(table.chunk_meta, nc, SLOTS_PER_ROW[rows])
     peak_ops, peak_txt = fp32_peak(ch_args[0].device)
     lane_in = 24 + 4 + 4  # o, d, excl, seed
 
@@ -586,9 +617,10 @@ def measure_packet(label, pbvh, args, timer, bound):
 def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
     """Phases 3/4 and 3c/4c: parity and timing of K1/K2, K5 (the same
     table) and K8/K9 (the same spheres packed at 16 rows per chunk) at the
-    stress-500 scene and width x height lanes.  All three compute one
-    function, so all three are bounded on the scene's 2-row chunks.
-    Returns per-kernel records."""
+    stress-500 scene and width x height lanes, and 3g: K1/K2 on adversarial
+    lanes of the same table.  All three compute one function, so all three
+    are bounded on the leaves of K1's tree (sphere_leaf_bound).  Returns
+    per-kernel records."""
     import torch
 
     ST, _, CS, _ = _kernel_modules()
@@ -620,8 +652,7 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
             f"{ah_name} primary", ah(table, chunks, po, pd, p_excl, excl_ent, t_max),
             ah_plain(table, chunks, po, pd, p_excl, excl_ent, t_max)))
         fam = measure(kind, "incoherent frame", table, chunks, (o, d, excl, t_init),
-                      (o, d, excl, excl_ent, t_max), timer,
-                      bound=chunk_bound(ps.chunk_meta, nc, SLOTS_PER_ROW["sphere"]))
+                      (o, d, excl, excl_ent, t_max), timer, bound=sphere_leaf_bound(ps))
         hits = int((ch(table, chunks, o, d, excl, t_init)[0] < BIG).sum().item())
         occl = int(ah(table, chunks, o, d, excl, excl_ent, t_max).sum().item())
         log(f"[parity] {label} == plain at {n} lanes x {table.tris.shape[0] * 16} "
@@ -632,20 +663,112 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
         for r in fam.values():
             r["max_abs_err"] = max(r["max_abs_err"], err)
         recs.update(fam)
+    err = hold_adversarial_spheres(ps, nc, static.n_entities, device)
+    for name in ("sphere_closest_hit", "sphere_any_hit"):
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
     return recs
 
 
-def repack_tris(scene, bvh, rows_per_chunk, device):
+def adversarial_sphere_lanes(ps, nc, n, n_entities, device, seed=7):
+    """n lanes that stress the sphere kernels' walks on a sphere table: rays
+    from random points around a sphere aimed exactly at its centre (even
+    lanes) or grazing it (odd lanes: aimed at the tangent point from the
+    origin, moved to r (1 + e) from the centre, e a few units of 2^-24
+    either way, so the discriminant lies within rounding of 0 and the
+    square-root skip decides), a quarter excluding the aimed-at sphere; an eighth with a
+    zero direction component, half of those starting exactly on a plane of
+    K1's tree's boxes (a NaN slab distance); 1/16 dead; t_init set to the
+    lane's exact closest-hit t on a quarter of the hitting lanes (the hit
+    must not count) and t_max to its exact nearest occluder on a quarter
+    of the occluded ones, an eighth 0.  Returns ((o, d, excl, t_init), (o,
+    d, excl, excl_ent, t_max), counts)."""
+    import torch
+
+    ST = _kernel_modules()[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g).to(device)
+    slots = ps.tris.reshape(-1, 8)
+    n_slots = int((slots[:, 4] >= 0).sum().item())
+    k = torch.randint(0, n_slots, (n,), generator=g).to(device)
+    c, r = slots[k, 0:3], slots[k, 3].sqrt()[:, None]
+    lane = torch.arange(n, device=device)
+    span = float((slots[:n_slots, 0:3].amax(0) - slots[:n_slots, 0:3].amin(0)).norm())
+    off = torch.randn(n, 3, generator=g).to(device)
+    off = off / off.norm(dim=1, keepdim=True)
+    o = c + off * (r * 1.5 + u(n, 1) * span / 4)
+    side = torch.randn(n, 3, generator=g).to(device)
+    side = side - (side * off).sum(1, keepdim=True) * off  # across the ray
+    side = side / side.norm(dim=1, keepdim=True)
+    e = torch.randint(-4, 5, (n, 1), generator=g).to(device) * 2.0 ** -24
+    cos = r / (o - c).norm(dim=1, keepdim=True)  # the tangent point's angle from off
+    tangent = c + r * (1 + e) * (cos * off + (1 - cos * cos).sqrt() * side)
+    aim = torch.where((lane % 2 == 0)[:, None], c, tangent)
+    d = aim - o
+    flat_axis = lane % 8 == 3
+    axis = torch.randint(0, 3, (n,), generator=g).to(device)
+    d[flat_axis, axis[flat_axis]] = 0.0
+    on_plane = flat_axis & (lane % 16 == 3)
+    pick = torch.randint(0, ps.nodes.shape[0], (n,), generator=g).to(device)
+    o[on_plane, axis[on_plane]] = ps.nodes[pick[on_plane], axis[on_plane]]  # a box's lo
+    d = d / d.norm(dim=1, keepdim=True)
+    o[lane % 16 == 9] = 1e30
+    excl = torch.where(lane % 4 == 1, slots[k, 4], -1.0).to(torch.int32)
+    o, d = o.float().contiguous(), d.float().contiguous()
+    big = torch.full((n,), BIG, device=device)
+    first = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, big)[0]
+    exact = (lane % 4 == 2) & (first < BIG)
+    t_init = torch.where(exact, first, big).contiguous()
+    excl_ent = torch.randint(-1, n_entities, (n,), generator=g, dtype=torch.int32).to(device)
+    near = nearest_occluder("sphere", ps, nc, o, d, excl, excl_ent, big)
+    occl_exact = (lane % 4 == 0) & (near < float("inf"))
+    t_max = torch.where(occl_exact, near,
+                        torch.where(lane % 8 == 5, 0.0, u(n) * span)).contiguous()
+    fields = ST._slot_fields(ps.tris)
+    met, t = ST._row_test(fields, o, d, excl, torch.full((n,), float("inf"), device=device))
+    t = torch.where(met, t, float("inf"))
+    ties = int((((t == t.amin(1, keepdim=True)) & met).sum(1) > 1).sum().item())
+    b = slots[k, 0:3] - o  # the discriminant of the aimed-at sphere, in f64
+    along = (b.double() * d.double()).sum(1)
+    disc = along ** 2 - ((b.double() ** 2).sum(1) - r[:, 0].double() ** 2)
+    counts = dict(hits=int((first < BIG).sum().item()), exact_t_init=int(exact.sum().item()),
+                  exact_t_max=int(occl_exact.sum().item()), ties=ties,
+                  grazing=int(((lane % 2 == 1) & (disc.abs() < 1e-4 * r[:, 0].double() ** 2))
+                              .sum().item()),
+                  nan_slab=int(on_plane.sum().item()), zero_component=int(flat_axis.sum().item()))
+    return (o, d, excl, t_init), (o, d, excl, excl_ent, t_max), counts
+
+
+def hold_adversarial_spheres(ps, nc, n_entities, device, n=4096):
+    """3g: K1 and K2 against their plain versions on adversarial_sphere_lanes
+    of the stress-500 table: equal outputs, bit for bit.  Returns the
+    largest absolute difference (0)."""
+    ST = _kernel_modules()[0]
+    ch_args, ah_args, counts = adversarial_sphere_lanes(ps, nc, n, n_entities, device)
+    err = check_equal("sphere_closest_hit adversarial",
+                      ST.closest_hit_spheres(ps, nc, *ch_args),
+                      ST.closest_hit_spheres_plain(ps.tris, *ch_args))
+    occ = ST.occludes_spheres(ps, nc, *ah_args)
+    err = max(err, check_equal("sphere_any_hit adversarial", occ,
+                               ST.occludes_spheres_plain(ps.tris, *ah_args)))
+    log(f"[parity] stress-500: K1/K2 == plain on {n} adversarial lanes ({counts['hits']} "
+        f"hits, {counts['grazing']} grazing lanes with the discriminant within 1e-4 r^2 "
+        f"of 0, {counts['ties']} with an exact tie at the nearest hit, "
+        f"{counts['exact_t_init']} with t_init at the exact hit t, {counts['exact_t_max']} "
+        f"with t_max at the exact occluder t, {counts['zero_component']} with a zero "
+        f"direction component, {counts['nan_slab']} of them on a box plane; "
+        f"{int(occ.sum().item())} occluded)")
+    return err
+
+
+def repack_tris(scene, pbvh, rows_per_chunk, device):
     """The scene's triangle table repacked at rows_per_chunk rows per chunk,
-    over the same BVH (bvh: the BVH route's scene.bvh of the same mesh, so
+    over the same BVH (pbvh: the BVH route's K6 table of the same mesh, so
     the same leaves and ids) and the scene's BVH-ordered triangles, with its
     hierarchy.  Returns (PackedTris, n_chunks)."""
-    import types
-
+    from paths_tpu_torch.ops import packet_traverse as PK
     from paths_tpu_torch.ops import tri_traverse as TT
 
-    flat = types.SimpleNamespace(**{k: getattr(bvh, k).cpu().numpy()
-                                    for k in ("prim_count", "prim_start", "miss_link")})
+    flat = PK.tree_shape(pbvh)
     f64 = lambda x: x.cpu().double().numpy()
     pt, nc = TT.pack_chunked(flat, f64(scene.tri_v0), f64(scene.tri_v1),
                              f64(scene.tri_v2), f64(scene.tri_n),
@@ -668,27 +791,10 @@ def adversarial_lanes(scene, table, n_chunks, n, n_entities, device, seed=7):
 
     from paths_tpu_torch.ops import tri_traverse as TT
 
-    g = torch.Generator(device="cpu").manual_seed(seed)
+    o, d, excl, g, counts = adversarial_rays(scene, table.nodes, n, device, seed)
     u = lambda *s: torch.rand(*s, generator=g).to(device)
-    v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
-    k = torch.randint(0, v0.shape[0], (n,), generator=g).to(device)
     lane = torch.arange(n, device=device)
-    aim = torch.where((lane % 2 == 0)[:, None], v0[k], 0.5 * (v1[k] + v2[k]))
-    span = float((v0.amax(0) - v0.amin(0)).norm())
-    off = torch.randn(n, 3, generator=g).to(device)
-    o = aim + off / off.norm(dim=1, keepdim=True) * (1.0 + u(n, 1) * span / 4)
-    d = aim - o
-    flat_axis = lane % 8 == 3
-    axis = torch.randint(0, 3, (n,), generator=g).to(device)
-    d[flat_axis, axis[flat_axis]] = 0.0
-    on_plane = flat_axis & (lane % 16 == 3)
-    nodes = table.nodes
-    pick = torch.randint(0, nodes.shape[0], (n,), generator=g).to(device)
-    o[on_plane, axis[on_plane]] = nodes[pick[on_plane], axis[on_plane]]  # a box's lo
-    d = d / d.norm(dim=1, keepdim=True)
-    o[lane % 16 == 9] = 1e30
-    excl = torch.where(lane % 4 == 1, k, -1).to(torch.int32)
-    o, d = o.float().contiguous(), d.float().contiguous()
+    span = float((scene.tri_v0.amax(0) - scene.tri_v0.amin(0)).norm())
     t_init = torch.full((n,), BIG, device=device)
     first = TT.closest_hit_tris_plain(table, n_chunks, o, d, excl, t_init)[0]
     exact = (lane % 4 == 2) & (first < BIG)
@@ -707,10 +813,74 @@ def adversarial_lanes(scene, table, n_chunks, n, n_entities, device, seed=7):
         t = torch.where(met, t, float("inf"))
         tmin = t.amin(1, keepdim=True)
         ties += int((((t == tmin) & met).sum(1) > 1).sum().item())
-    counts = dict(hits=int((first < BIG).sum().item()), exact_t_init=int(exact.sum().item()),
-                  exact_t_max=int(occl_exact.sum().item()), ties=ties,
-                  nan_slab=int(on_plane.sum().item()), zero_component=int(flat_axis.sum().item()))
+    counts.update(hits=int((first < BIG).sum().item()), exact_t_init=int(exact.sum().item()),
+                  exact_t_max=int(occl_exact.sum().item()), ties=ties)
     return (o, d, excl, t_init), (o, d, excl, excl_ent, t_max), counts
+
+
+def adversarial_rays(scene, nodes, n, device, seed):
+    """The rays of adversarial_lanes over the scene's triangles (tri_v0..2,
+    in the tables' order), with origins put on planes of the boxes of
+    `nodes` ([lo.xyz ref | hi.xyz aux] rows).  Returns (o, d, excl, the
+    generator, to draw the lanes' seeds from, counts)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g).to(device)
+    v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
+    k = torch.randint(0, v0.shape[0], (n,), generator=g).to(device)
+    lane = torch.arange(n, device=device)
+    aim = torch.where((lane % 2 == 0)[:, None], v0[k], 0.5 * (v1[k] + v2[k]))
+    span = float((v0.amax(0) - v0.amin(0)).norm())
+    off = torch.randn(n, 3, generator=g).to(device)
+    o = aim + off / off.norm(dim=1, keepdim=True) * (1.0 + u(n, 1) * span / 4)
+    d = aim - o
+    flat_axis = lane % 8 == 3
+    axis = torch.randint(0, 3, (n,), generator=g).to(device)
+    d[flat_axis, axis[flat_axis]] = 0.0
+    on_plane = flat_axis & (lane % 16 == 3)
+    pick = torch.randint(0, nodes.shape[0], (n,), generator=g).to(device)
+    o[on_plane, axis[on_plane]] = nodes[pick[on_plane], axis[on_plane]]  # a box's lo
+    d = d / d.norm(dim=1, keepdim=True)
+    o[lane % 16 == 9] = 1e30
+    excl = torch.where(lane % 4 == 1, k, -1).to(torch.int32)
+    counts = dict(nan_slab=int(on_plane.sum().item()), zero_component=int(flat_axis.sum().item()))
+    return o.float().contiguous(), d.float().contiguous(), excl, g, counts
+
+
+def hold_adversarial_packet(label, pbvh, scene, device, n=4096):
+    """K6 against its plain version on the rays of adversarial_lanes (origins
+    on planes of K6's tree), with t_init set to the lane's exact closest-hit
+    t (K6's own row test) on a quarter of the hitting lanes: equal outputs,
+    bit for bit.  Returns the largest absolute difference (0)."""
+    import torch
+
+    PK = _kernel_modules()[3]
+    o, d, excl, _, counts = adversarial_rays(scene, pbvh.tree, n, device, seed=11)
+    lane = torch.arange(n, device=device)
+    big = torch.full((n,), BIG, device=device)
+    first = PK.closest_hit_packet_plain(pbvh, o, d, excl, big)[0]
+    exact = (lane % 4 == 2) & (first < BIG)
+    t_init = torch.where(exact, first, big).contiguous()
+    err = check_equal(f"packet_closest_hit {label} adversarial",
+                      PK.closest_hit_packet(pbvh, o, d, excl, t_init),
+                      PK.closest_hit_packet_plain(pbvh, o, d, excl, t_init))
+    slots = pbvh.tris.reshape(-1, 16)
+    ties = 0
+    step = max(1, (1 << 24) // slots.shape[0])
+    for a in range(0, n, step):
+        b = min(a + step, n)
+        met, t = PK._row_test(slots[None], o[a:b, None], d[a:b, None], excl[a:b, None],
+                              torch.full((b - a, 1), float("inf"), device=device))
+        met &= ~(o[a:b, 0:1] > 1e29)
+        t = torch.where(met, t, float("inf"))
+        ties += int((((t == t.amin(1, keepdim=True)) & met).sum(1) > 1).sum().item())
+    log(f"[parity] {label}: K6 == plain on {n} adversarial lanes "
+        f"({int((first < BIG).sum().item())} hits, {ties} with an exact tie at the "
+        f"nearest hit, {int(exact.sum().item())} with t_init at the exact hit t, "
+        f"{counts['zero_component']} with a zero direction component, "
+        f"{counts['nan_slab']} of them on a box plane of K6's tree)")
+    return err
 
 
 def hold_adversarial(label, table, n_chunks, scene, n_entities, device, n=4096):
@@ -769,13 +939,13 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
     t = time.time()
     bstatic, bscene, _ = build_scene(sd, device=device, bvh_threshold=BVH_THRESHOLD)
     assert bstatic.use_bvh and bstatic.tri_chunks == 0
-    bvh = bscene.bvh
-    log(f"[build] {label} BVH route: {bvh.node_min.shape[0]} nodes, "
-        f"{int((bvh.prim_count > 0).sum().item())} leaves, K6 table "
-        f"{bscene.pbvh.tris.shape[0]} leaf rows; scene built in {time.time() - t:.1f} s")
-    bound = leaf_bound(bvh)
+    pbvh = bscene.pbvh
+    log(f"[build] {label} BVH route: {pbvh.tree.shape[0]} nodes, "
+        f"{int((pbvh.tree[:, 3] < 0).sum().item())} leaves, K6 table "
+        f"{pbvh.tris.shape[0]} leaf rows; scene built in {time.time() - t:.1f} s")
+    bound = leaf_bound(pbvh)
     if scan:
-        pt, nc = repack_tris(scene, bvh, CS.TRI_ROWS_PER_CHUNK, device)
+        pt, nc = repack_tris(scene, pbvh, CS.TRI_ROWS_PER_CHUNK, device)
         tables.append(("scan_tri", "K7/K9", pt, nc, CS.TRI_ROWS_PER_CHUNK))
         log(f"[build] {label} repacked: {nc} chunks of {CS.TRI_ROWS_PER_CHUNK} rows, "
             f"table {pt.tris.shape[0]} rows")
@@ -860,6 +1030,9 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
         rec[key] = timer(lambda: k6(*args))
         rec["k3_" + key] = timer(lambda: k3(*args))
         got = k6(*args)
+        rec["max_abs_err"] = max(rec["max_abs_err"], check_equal(
+            f"packet_closest_hit {label} {key[:-3].replace('_', ' ')}", got,
+            PK.closest_hit_packet_plain(pbvh, *args)))
         hits = int((got[0] < BIG).sum().item())
         log(f"[timing] {label} {key[:-3].replace('_', ' ')}, {n} lanes: "
             f"packet_closest_hit {rec[key]:.3f} ms ({hits} hits), tri_closest_hit "
@@ -869,9 +1042,11 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
             scene.tri_v0, scene.tri_n)
     rec.update({f"primary_{k}": v for k, v in packet["primary"].items()
                 if k in ("ms", "plain_ms", "bound_ms", "bound_by", "k3_ms", "k3_parts")})
-    rec["max_abs_err"] = max(r["max_abs_err"] for r in packet.values())
+    rec["max_abs_err"] = max(rec["max_abs_err"], *(r["max_abs_err"] for r in packet.values()),
+                             hold_adversarial_packet(label, pbvh, bscene, device))
     log(f"[parity] {label}: K6 == plain at {SUBSET} primary and {SUBSET} incoherent "
-        f"lanes ({bscene.pbvh.tris.shape[0]} leaf rows)")
+        f"lanes, on both {n}-lane frames and on adversarial lanes "
+        f"({pbvh.tris.shape[0]} leaf rows)")
     recs["packet_closest_hit"] = rec
     return recs
 
@@ -1102,8 +1277,9 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     scene's traversal kernels held and timed on the inputs that tile's
     second bounce iteration gave them (closest-hit and any-hit; on the BVH
     route, kind "packet", K6's closest-hit query of that iteration), bounded
-    by `bound` (default: the kernel's own chunks; leaf_bound for the
-    triangles).  Returns per-kernel records at that shape."""
+    by `bound` (default: the leaves of K1's tree for the spheres and of the
+    BVH for K6; the triangle kernels are given leaf_bound).  Returns
+    per-kernel records at that shape."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1178,12 +1354,14 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     if kind == "packet":  # (pbvh, o, d, excl, t_init)
         args = cap[names[0]]
         return measure_packet(f"{label} main-path tile", args[0], args[1:], timer,
-                              bound or leaf_bound(scene.bvh))
+                              bound or leaf_bound(scene.pbvh))
     ch_a, ah_a = cap[names[0]], cap[names[1]]
-    if kind == "flat":  # (rows, o, d, ...): the bound counts K1's chunks
+    if kind == "flat":  # (rows, o, d, ...): the bound counts K1's tree's leaves
         table, nc, ch_args, ah_args = scene.psph, static.sph_chunks, ch_a[1:], ah_a[1:]
     else:  # (table, n_chunks, o, d, ...)
         table, nc, ch_args, ah_args = ch_a[0], ch_a[1], ch_a[2:], ah_a[2:]
+    if kind != "tri":
+        bound = bound or sphere_leaf_bound(scene.psph)
     return measure(kind, f"{label} main-path tile", table, nc, ch_args, ah_args,
                    timer, plain_reps=kind != "tri", bound=bound)
 
@@ -1193,14 +1371,29 @@ def gpu_vs_cpu(device, route="walk"):
     mixed scene, 48x32, 2 spp, 3 bounces.  route "walk": 40 spheres and the
     128-triangle grid, K1-K4; "flat": the same on the flat route, K5, K3,
     K4; "bvh": 8 spheres and the grid built with bvh_threshold=64, so the
-    card runs K6 and the CPU the walk of bvh/traverse.py (K6's function to
-    rtol 1e-5, not to the bit)."""
+    card runs K6 and the CPU its plain version, one function: every K6 call
+    of the card's render is held bit for bit against the plain version on
+    its inputs.  The images must agree to relative MSE < 1e-4 (the eager
+    shading between the queries runs PyTorch's CUDA and CPU operators, whose
+    transcendentals and reductions round differently)."""
+    import numpy as np
+
     from paths_tpu_torch import camera as C
     from paths_tpu_torch.render import render_image
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_mixed_scene
 
-    imgs = []
+    PK = _kernel_modules()[3]
+    imgs, held = [], [0]
+    k6 = PK.closest_hit_packet
+
+    def k6_held(pbvh, *args):
+        got = k6(pbvh, *args)
+        check_equal("packet_closest_hit in the bvh route's render", got,
+                    PK.closest_hit_packet_plain(pbvh, *args))
+        held[0] += 1
+        return got
+
     with tempfile.TemporaryDirectory() as tmp:
         for dev in (device, "cpu"):
             if route == "flat":
@@ -1220,15 +1413,23 @@ def gpu_vs_cpu(device, route="walk"):
                 assert static.sph_flat == (route == "flat")
             static = dataclasses.replace(static, max_bounces=3)
             reset_launch_counts()
-            imgs.append(render_image(static, scene, C.resize(cam, 48, 32), 48, 32,
-                                     spp=2, seed=0))
+            if route == "bvh" and dev == device:
+                PK.closest_hit_packet = k6_held
+            try:
+                imgs.append(render_image(static, scene, C.resize(cam, 48, 32), 48, 32,
+                                         spp=2, seed=0))
+            finally:
+                PK.closest_hit_packet = k6
             if dev == device and route == "bvh" and launch_counts()["packet_closest_hit"] == 0:
                 raise AssertionError("GPU vs CPU (bvh route): K6 was not launched")
     rel = rel_mse(*imgs)
     if not rel < 1e-4:
         raise AssertionError(f"GPU vs CPU ({route} route) relative MSE {rel:.3e} >= 1e-4")
+    differ = int((np.abs(imgs[0] - imgs[1]).max(-1) > 0).sum())
+    extra = (f"; each of the card's {held[0]} K6 queries equal to the plain version "
+             "on its inputs" if route == "bvh" else "")
     log(f"[gpu-vs-cpu] mixed scene 48x32 2 spp, {route} route: relative MSE "
-        f"{rel:.3e} (< 1e-4)")
+        f"{rel:.3e} (< 1e-4), {differ} of {48 * 32} pixels differ{extra}")
 
 
 def main() -> int:
@@ -1268,7 +1469,7 @@ def main() -> int:
     tile.update(where_time_goes(
         device, "tri", "doom_standin",
         lambda: build_scene(load_scene_description(DOOM), device=device),
-        bound=leaf_bound(doom_bvh[1].bvh)))
+        bound=leaf_bound(doom_bvh[1].pbvh)))
 
     def flat_lit():
         with flat_route():
@@ -1282,7 +1483,7 @@ def main() -> int:
     dragon_tile = where_time_goes(
         device, "tri", "dragon_standin",
         lambda: build_scene(load_scene_description(DRAGON), device=device), spp=2,
-        bound=leaf_bound(dragon_bvh[1].bvh))
+        bound=leaf_bound(dragon_bvh[1].pbvh))
     dragon_tile.update(where_time_goes(device, "packet", "dragon_standin BVH route",
                                        lambda: dragon_bvh, spp=2))
     for route in ("walk", "flat", "bvh"):

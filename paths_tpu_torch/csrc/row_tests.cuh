@@ -73,6 +73,9 @@ __device__ __forceinline__ bool crosses_box(const float* __restrict__ m,
 //   t = d2 > 0 ? d2 : d1.
 // Returns whether the sphere is met ahead (disc >= 0 && d1 >= 0) and sets t.
 // An empty slot (r^2 = -1, gid = -1) fails the caller's gid >= 0 test.
+// SkipMiss returns false as soon as disc < 0, before the square root, and
+// leaves t unset: the same outcome, since such a slot never qualifies.
+template <bool SkipMiss = false>
 __device__ __forceinline__ bool sphere_slot(float cx, float cy, float cz,
                                             float r2, const float o[3],
                                             const float d[3], float& t) {
@@ -82,6 +85,7 @@ __device__ __forceinline__ bool sphere_slot(float cx, float cy, float cz,
   const float b = fmaf(d[2], ocz, fmaf(d[0], ocx, d[1] * ocy));
   const float c2 = fmaf(ocz, ocz, fmaf(ocx, ocx, ocy * ocy)) - r2;
   const float disc = fmaf(b, b, -c2);
+  if (SkipMiss && disc < 0.0f) return false;
   const float root = sqrtf(fmaxf(disc, 0.0f));
   const float d1 = -b + root;
   const float d2 = -b - root;

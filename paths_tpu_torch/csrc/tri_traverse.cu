@@ -43,20 +43,12 @@
 // occluded, exactly as the reference kernel does.  A lane with o.x > 1e29
 // is dead: a miss / not occluded (occluded when t_max == 0).
 //
-// The walk, one thread per lane: slab-test the root; at an inner node
-// slab-test both children against the running t_best, descend into the
-// nearer (the left one on a tie) and push the farther with its entry
-// distance; at a leaf test its slots; then pop, discarding entries whose
-// entry distance is greater than t_best.  Out of table order a strict
-// t < t_best no longer gives the first slot of a tie, so a slot replaces the
-// best when t < t_best || (t == t_best && pos < pos_best), with pos_best = -1
-// until a hit: a slot at exactly t_init never enters.  A box entered at
-// exactly t_best is kept (tmin <= t_best), and so is a popped entry at
-// exactly t_best, so a tie in another row is always reached.  A stack entry
-// is pushed once per inner level on the current path, so the stack holds at
-// most the tree's depth in inner nodes; pack_chunked refuses a tree deeper
-// than kStack = 64 (doom_standin's tree has 17 levels, dragon_standin's 21:
-// scripts/tri_hierarchy_shapes.py).
+// The walk, one thread per lane, is csrc/walk.cuh's (shared with K1 and
+// K6): front to back with a 64-entry stack, pruning against the running
+// best, a (t, table position) tie rule; pack_chunked refuses a tree deeper
+// than the stack (doom_standin's tree has 17 levels, dragon_standin's 21:
+// scripts/tri_hierarchy_shapes.py).  The leaf test here: a row's slots
+// in order, stopping at the first empty one.
 //
 // What bounds it on this card: bytes.  The function's work, counted by
 // chip_smoke.py::leaf_bound -- the needed leaves' triangles (64 B each) and
@@ -82,137 +74,58 @@
 #include <cuda_runtime.h>
 
 #include "row_tests.cuh"
+#include "walk.cuh"
 
 namespace {
 
+using paths_rt::Best;
 using paths_rt::kBig;
-using paths_rt::kDead;
 using paths_rt::kRowFloats;
 using paths_rt::tri_slot;
 
 constexpr int kThreads = 256;
 constexpr int kSlotsPerRow = 8;  // of 16 floats: four float4 per slot
-constexpr int kStack = 64;       // walk stack entries (inner levels of the tree)
 
-struct Hit {
-  float t;
-  int gid;
-  int ent;
-};
-
-// The slab test of row_tests.cuh::crosses_padded_box on a node's padded
-// box (a = [lo.xyz ref], b = [hi.xyz aux]), returning the entry distance
-// and keeping a box entered at exactly t_best.  An axis whose slab distance
-// is NaN (d == 0 with the origin on a plane of the box) does not constrain.
-__device__ __forceinline__ bool enters(const float4 a, const float4 b,
-                                       const float o[3], const float inv[3],
-                                       float t_best, float& t_entry) {
-  const float lo[3] = {a.x, a.y, a.z};
-  const float hi[3] = {b.x, b.y, b.z};
-  float tmin = -kBig;
-  float tmax = kBig;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    const float t0 = (lo[ax] - o[ax]) * inv[ax];
-    const float t1 = (hi[ax] - o[ax]) * inv[ax];
-    if (isnan(t0) || isnan(t1)) continue;
-    tmin = fmaxf(tmin, fminf(t0, t1));
-    tmax = fminf(tmax, fmaxf(t0, t1));
-  }
-  t_entry = tmin;
-  return tmin < tmax && tmin <= t_best && tmax > 0.0f;
-}
-
+// The leaf test: one row of the table (ref = -1 - row, aux = its chunk),
+// recentred on its chunk, its slots in order up to the first empty one.
 template <bool AnyHit>
-__device__ __forceinline__ Hit walk(const float4* __restrict__ nodes,
-                                    const float* __restrict__ tris,
-                                    const float* __restrict__ meta,
-                                    const float o[3], const float d[3],
-                                    int excl, int excl_ent, float t_seed) {
-  Hit h{t_seed, 0, 0};
-  if (o[0] > kDead || (AnyHit && t_seed == 0.0f)) return h;
-  const float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
-  float t_entry;
-  const float4 ra = __ldg(nodes);
-  const float4 rb = __ldg(nodes + 1);
-  if (!enters(ra, rb, o, inv, h.t, t_entry)) return h;
-  int ref = static_cast<int>(ra.w);  // the current node, its box entered
-  int aux = static_cast<int>(rb.w);
-  int pos_best = -1;
-  int stack_ref[kStack];
-  int stack_aux[kStack];
-  float stack_t[kStack];
-  int sp = 0;
-  while (true) {
-    if (ref >= 0) {  // inner node: both children against t_best
-      const float4 la = __ldg(nodes + 2 * ref);
-      const float4 lb = __ldg(nodes + 2 * ref + 1);
-      const float4 ka = __ldg(nodes + 2 * aux);
-      const float4 kb = __ldg(nodes + 2 * aux + 1);
-      float tl;
-      float tr;
-      const bool hl = enters(la, lb, o, inv, h.t, tl);
-      const bool hr = enters(ka, kb, o, inv, h.t, tr);
-      if (hl && hr) {
-        const bool right_first = tr < tl;
-        stack_ref[sp] = static_cast<int>(right_first ? la.w : ka.w);
-        stack_aux[sp] = static_cast<int>(right_first ? lb.w : kb.w);
-        stack_t[sp] = right_first ? tl : tr;
-        ++sp;
-        ref = static_cast<int>(right_first ? ka.w : la.w);
-        aux = static_cast<int>(right_first ? kb.w : lb.w);
-        continue;
-      }
-      if (hl || hr) {
-        ref = static_cast<int>(hl ? la.w : ka.w);
-        aux = static_cast<int>(hl ? lb.w : kb.w);
-        continue;
-      }
-    } else {  // leaf: one row of the table, recentred on its chunk
-      const int r = -1 - ref;
-      const float4* m = reinterpret_cast<const float4*>(
-          meta + static_cast<size_t>(aux) * kRowFloats);
-      const float4 m0 = __ldg(m);      // lo.xyz, hi.x
-      const float4 m1 = __ldg(m + 1);  // hi.yz, row0, nrows
-      const float os[3] = {o[0] - 0.5f * (m0.x + m0.w), o[1] - 0.5f * (m0.y + m1.x),
-                           o[2] - 0.5f * (m0.z + m1.y)};
-      const float4* row =
-          reinterpret_cast<const float4*>(tris + static_cast<size_t>(r) * kRowFloats);
+struct RowLeaf {
+  const float* tris;
+  const float* meta;
+  float o[3];
+  float d[3];
+  int excl;
+  int excl_ent;
+
+  __device__ __forceinline__ bool operator()(int ref, int aux, Best& best) const {
+    const int r = -1 - ref;
+    const float4* m = reinterpret_cast<const float4*>(
+        meta + static_cast<size_t>(aux) * kRowFloats);
+    const float4 m0 = __ldg(m);      // lo.xyz, hi.x
+    const float4 m1 = __ldg(m + 1);  // hi.yz, row0, nrows
+    const float os[3] = {o[0] - 0.5f * (m0.x + m0.w), o[1] - 0.5f * (m0.y + m1.x),
+                         o[2] - 0.5f * (m0.z + m1.y)};
+    const float4* row =
+        reinterpret_cast<const float4*>(tris + static_cast<size_t>(r) * kRowFloats);
 #pragma unroll 2
-      for (int k = 0; k < kSlotsPerRow; ++k) {
-        const float4 g = __ldg(row + 4 * k + 3);  // gid, 0, ent, 0
-        const int gid = static_cast<int>(g.x);
-        if (gid < 0) break;  // a leaf's triangles fill its first slots
-        const float4 a = __ldg(row + 4 * k);      // n.xyz, dd
-        const float4 b = __ldg(row + 4 * k + 1);  // g1.xyz, c1
-        const float4 e = __ldg(row + 4 * k + 2);  // g2.xyz, c2
-        float t;
-        const bool met = tri_slot(a, b, e, os, d, t) && gid != excl;
-        if constexpr (AnyHit) {
-          if (met && t < h.t && static_cast<int>(g.z) != excl_ent) {
-            h.t = 0.0f;
-            return h;
-          }
-        } else {
-          const int pos = r * kSlotsPerRow + k;
-          if (met && (t < h.t || (t == h.t && pos < pos_best))) {
-            h.t = t;
-            h.gid = gid;
-            h.ent = static_cast<int>(g.z);
-            pos_best = pos;
-          }
-        }
+    for (int k = 0; k < kSlotsPerRow; ++k) {
+      const float4 g = __ldg(row + 4 * k + 3);  // gid, 0, ent, 0
+      const int gid = static_cast<int>(g.x);
+      if (gid < 0) break;  // a leaf's triangles fill its first slots
+      const float4 a = __ldg(row + 4 * k);      // n.xyz, dd
+      const float4 b = __ldg(row + 4 * k + 1);  // g1.xyz, c1
+      const float4 e = __ldg(row + 4 * k + 2);  // g2.xyz, c2
+      float t;
+      const bool met = tri_slot(a, b, e, os, d, t) && gid != excl;
+      if constexpr (AnyHit) {
+        if (met && t < best.t && static_cast<int>(g.z) != excl_ent) return true;
+      } else if (met) {
+        best.offer(t, r * kSlotsPerRow + k, gid, static_cast<int>(g.z));
       }
     }
-    // Pop the nearest pending subtree that can still hold the answer.
-    while (sp > 0 && stack_t[sp - 1] > h.t) --sp;
-    if (sp == 0) break;
-    --sp;
-    ref = stack_ref[sp];
-    aux = stack_aux[sp];
+    return false;
   }
-  return h;
-}
+};
 
 // One thread per ray.  The closest-hit form (AnyHit = false) writes t, gid
 // and ent; the any-hit form writes the occluded flag.
@@ -233,8 +146,9 @@ __global__ void __launch_bounds__(kThreads)
   const float ro[3] = {o[3 * lane], o[3 * lane + 1], o[3 * lane + 2]};
   const float rd[3] = {d[3 * lane], d[3 * lane + 1], d[3 * lane + 2]};
   const float t0 = t_seed[lane];
-  const Hit h = walk<AnyHit>(nodes, tris, meta, ro, rd, excl[lane],
-                             AnyHit ? excl_ent[lane] : 0, t0);
+  const RowLeaf<AnyHit> leaf{tris, meta, {ro[0], ro[1], ro[2]}, {rd[0], rd[1], rd[2]},
+                             excl[lane], AnyHit ? excl_ent[lane] : 0};
+  const Best h = paths_rt::walk<AnyHit>(nodes, ro, rd, t0, leaf);
   if constexpr (AnyHit) {
     occluded[lane] = h.t == 0.0f ? 1 : 0;
   } else {

@@ -17,10 +17,10 @@ to the traversal kernels (``ops/sphere_traverse.py``,
 ``ops/chunk_scan.py`` when the build chose it) when the scene packed them;
 big and far spheres, and scenes with at most 32 small spheres, take the
 double-single test in
-``geom/sphere.py``.  Meshes on the BVH route take the skip-link walk: the K6
-kernel (``ops/packet_traverse.py``) on the card, ``bvh/traverse.py`` on the
-CPU.  Meshes on neither route (by default, those of at most 64 triangles)
-take an unrolled scan of ``geom/triangle.py``.
+``geom/sphere.py``.  Meshes on the BVH route take K6
+(``ops/packet_traverse.py``: the kernel on the card, its plain version on
+the CPU).  Meshes on neither route (by default, those of at most 64
+triangles) take an unrolled scan of ``geom/triangle.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import torch
 from paths_tpu_torch import lights as LT
 from paths_tpu_torch import materials as M
 from paths_tpu_torch import sky as SK
-from paths_tpu_torch.bvh.traverse import closest_hit_bvh
 from paths_tpu_torch.geom import sphere as GS
 from paths_tpu_torch.geom import triangle as GT
 from paths_tpu_torch.math import vec
@@ -125,14 +124,10 @@ def _scan_tris(static: SceneStatic, scene: SceneArrays, o, d, excl_kind,
 
 def _closest_bvh(scene: SceneArrays, o, d, excl_kind, excl_idx, t_init):
     """The BVH route's closest triangle hit, seeded with t_init: (t, idx,
-    ent), t = BIG where nothing beats t_init.  K6 on the card, the walk of
-    bvh/traverse.py on the CPU."""
-    if o.device.type == "cpu":
-        tt, it = closest_hit_bvh(scene, o, d, excl_kind, excl_idx, t_init)
-        return tt, it, scene.tri_ent[it]
+    ent), t = BIG where nothing beats t_init.  K6 on every device."""
     if scene.pbvh is None:
-        raise ValueError("the BVH route on the card needs the packed BVH "
-                         "table (scene.pbvh), which build_scene makes")
+        raise ValueError("the BVH route needs the packed BVH table "
+                         "(scene.pbvh), which build_scene makes")
     excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)
     return PK.closest_hit_packet(scene.pbvh, o.contiguous(), d.contiguous(),
                                  excl_i, t_init.contiguous())

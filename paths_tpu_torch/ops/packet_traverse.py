@@ -6,7 +6,8 @@ Ports the K6 part of ``paths_tpu/ops/pallas_traverse.py``: ``pack_bvh``,
 shared with ``ops/tri_traverse.py``), bit-exact, and ``closest_hit_packet``.
 The kernel in ``csrc/packet_bvh.cu`` replaces ``pallas_traverse.py::_kernel``
 (launched by ``_launch_chunked``), whose row test is the vertex-layout
-``_tri_row_test``.
+``_tri_row_test``.  This is the BVH route's closest-hit query on every
+device: the plain version on the CPU, the kernel on the card.
 
 Table layout (as the reference's):
   nodes (M, 128) f32, one node per row, in preorder: [0:3] box min,
@@ -16,25 +17,37 @@ Table layout (as the reference's):
     n.xyz gid inv_area ent n.v0]; an empty slot has gid = -1 and n = 0
     (cos = 0: never hit).  inv_area and n.v0 are computed in f64 and
     rounded.
+and the port's own ``tree`` (M, 8) f32, derived at pack time: the same
+binary tree with explicit children, as csrc/walk.cuh reads it, [lo.xyz ref
+| hi.xyz aux] per node in preorder -- an inner node's ref its left child
+(the next node), aux its right child (the left child's miss link); a
+leaf's ref = -1 - leaf row, aux = its triangle count -- with each leaf's
+box its triangles' f32 box padded by a relative 1e-4 and each inner box the
+union of its children's (``tri_traverse.py::_row_hierarchy``, the tree of
+the triangle kernels' table).
 
-The contract is per lane, not per 1,024-lane packet: a lane walks the tree
-(``cursor = hit ? hit_link : miss_link``) with the slab test on each node's
-box padded by a relative 1e-4 (``PackedBvh.walk``, derived once at pack
-time), and tests a leaf's triangles only when its own slab test passes.
-The padding makes the walk equal brute force over every triangle with the
-same row test: f32 rounding of a box can only keep a node, never drop one.
-The reference's packet walk tests a leaf for every lane of a block once any
-lane's (unpadded) test passes, so its answer can depend on the other lanes
-of the block (``ROADMAP.md``, Queue 3).  A slab distance that is NaN (a
-direction component 0 with the origin exactly on a padded plane) leaves that
-axis unconstrained, in the kernel and here alike.
+The function is per lane, not per 1,024-lane packet: the closest
+qualifying slot, the first in table order (= preorder) on a tie, found by
+brute force over every triangle with the row test.  The plain version
+computes it by the skip-link walk (``cursor = hit ? hit_link :
+miss_link``) with the slab test on each node's own box padded by a relative
+1e-4 (``walk_nodes``) and a strict ``t < t_best``; the kernel by a
+front-to-back stack walk of ``tree`` with a (t, table position) tie rule.
+Both pads make their walks equal brute force: f32 rounding of a box can
+only keep a node, never drop one.  The reference's packet walk tests a leaf
+for every lane of a block once any lane's (unpadded) test passes, so its
+answer can depend on the other lanes of the block (``ROADMAP.md``, Queue
+3).  A slab distance that is NaN (a direction component 0 with the origin
+exactly on a padded plane) leaves that axis unconstrained, in the kernel
+and here alike.
 
-What bounds the kernel on an H100: FP32 issue on the row tests and the
-latency of dependent node reads.  A (ray, triangle) pair costs 53 FP32
-operations and a node visit about 20; the compact node copy (48 B a node)
-and the leaf rows (512 B a leaf) of a 200k-triangle mesh come to about 20 MB
-and stay in the 50 MB L2.  The design: one thread per ray walks the tree
-alone, reading node and leaf rows as float4 through the read-only path.
+What bounds the kernel on an H100: bytes -- the leaves' triangles (64 B a
+slot) and the nodes on a lane's way, which stay in the 50 MB L2 -- though
+what holds it from that bound is the chain of dependent node and slot
+reads per lane and the divergence of a warp's lanes.  The design: one
+thread per ray walks the tree front to back with a short per-lane stack,
+prunes every box beyond its running best, and reads nodes and slots as
+float4 through the read-only path.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises -- it never falls back.  The
@@ -44,6 +57,7 @@ wrapper counts its kernel launches in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -51,14 +65,9 @@ import torch
 
 from paths_tpu_torch import native
 from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on
-from paths_tpu_torch.ops.tri_traverse import PACK_LEAF, TRI_STRIDE, _leaf_map
+from paths_tpu_torch.ops.tri_traverse import (BOX_PAD, NODE_FLOATS, PACK_LEAF, TRI_STRIDE,
+                                               _leaf_map, _row_hierarchy)
 from paths_tpu_torch.ops.tri_traverse import _pad8 as tris_pad
-
-# Relative pad of a node box in the walk (csrc/row_tests.cuh kBoxPad).
-BOX_PAD = 1e-4
-# Floats per node of the walk's compact copy: [lo.xyz hit | hi.xyz miss |
-# leaf count 0 0], the box padded.
-WALK_FLOATS = 12
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"packet_closest_hit": 0}
@@ -72,7 +81,7 @@ def reset_launch_counts() -> None:
 class PackedBvh(NamedTuple):
     nodes: torch.Tensor  # (M, 128) f32, the reference's node table
     tris: torch.Tensor  # (R, 128) f32, the reference's leaf rows
-    walk: torch.Tensor  # (M, 12) f32, the nodes as the walk reads them
+    tree: torch.Tensor  # (M, NODE_FLOATS) f32, the kernel's tree (module docstring)
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +128,10 @@ def _pack_tri_rows(flat, v0, v1, v2, n, ent=None) -> np.ndarray:
 
 
 def walk_nodes(nodes: torch.Tensor) -> torch.Tensor:
-    """The walk's compact node copy: [lo - pad, hit | hi + pad, miss | leaf
-    row, count, 0, 0] per node row, pad = 1e-4 * (|lo| + |hi| + (hi - lo))
-    + 1e-6 per axis in f32 (the pad of csrc/row_tests.cuh::crosses_box)."""
+    """The plain version's skip-link node copy: [lo - pad, hit | hi + pad,
+    miss | leaf row, count, 0, 0] per node row, pad = 1e-4 * (|lo| + |hi| +
+    (hi - lo)) + 1e-6 per axis in f32 (the pad of
+    csrc/row_tests.cuh::crosses_box)."""
     lo, hi = nodes[:, 0:3], nodes[:, 3:6]
     pad = (lo.abs() + hi.abs() + (hi - lo)) * BOX_PAD + 1e-6
     zero = torch.zeros_like(nodes[:, 0:2])
@@ -129,19 +139,46 @@ def walk_nodes(nodes: torch.Tensor) -> torch.Tensor:
                      dim=1)
 
 
+def _tree(flat, v0, v1, v2) -> np.ndarray:
+    """The kernel's tree (module docstring): the BVH's binary tree with a
+    leaf's box its triangles' f32 box, padded, and aux its triangle count.
+    Raises if the tree is deeper than the kernel's walk stack."""
+    _, _, leaf_start = _leaf_map(flat, len(v0))
+    lo3 = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
+    hi3 = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
+    row_lo = np.minimum.reduceat(lo3, leaf_start, axis=0)
+    row_hi = np.maximum.reduceat(hi3, leaf_start, axis=0)
+    count = flat.prim_count[flat.prim_count > 0]
+    return _row_hierarchy(flat, row_lo, row_hi, count)
+
+
 def pack_bvh(flat, v0, v1, v2, n, ent=None, device="cpu") -> PackedBvh:
     """Pack a FlatBvh (leaves of at most PACK_LEAF triangles) and its
     triangles (v0, v1, v2, n (T, 3) in ``flat.order``, so the gid written
     into each slot indexes them; ent (T,) entity ids) into the table, each
-    part padded to a multiple of 8 rows as the reference's."""
+    part padded to a multiple of 8 rows as the reference's, and the
+    kernel's tree.  Raises if the BVH's leaves do not cover the triangles in
+    ascending ranges in preorder, or if the tree is deeper than the
+    kernel's walk stack (64 inner levels)."""
     nodes = torch.from_numpy(tris_pad(_pack_nodes(flat)))
     tris = torch.from_numpy(tris_pad(_pack_tri_rows(flat, v0, v1, v2, n, ent)))
-    walk = walk_nodes(nodes)
-    return PackedBvh(*(x.to(device) for x in (nodes, tris, walk)))
+    tree = torch.from_numpy(_tree(flat, *(np.asarray(a, np.float64) for a in (v0, v1, v2))))
+    return PackedBvh(*(x.to(device) for x in (nodes, tris, tree)))
+
+
+def tree_shape(pt: PackedBvh):
+    """The BVH's shape read back from a packed table, as pack_chunked takes
+    it: per node (in preorder, pt.tree's rows) prim_count, miss_link and
+    prim_start (a leaf's first triangle: the triangles of the leaves before
+    it, as pack_bvh checked that their ranges ascend), numpy int64."""
+    nodes = pt.nodes[: pt.tree.shape[0]].cpu().numpy()
+    count = nodes[:, 9].astype(np.int64)
+    return types.SimpleNamespace(prim_count=count, prim_start=np.cumsum(count) - count,
+                                 miss_link=nodes[:, 7].astype(np.int64))
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version: the kernel's walk, vectorised over the lanes that
+# Plain PyTorch version: the skip-link walk, vectorised over the lanes that
 # are still walking, in the kernel's arithmetic.  Used on CPU tensors, and
 # by the tests and the chip smoke run to hold the kernel.
 # ---------------------------------------------------------------------------
@@ -211,7 +248,7 @@ def closest_hit_packet_plain(pt: PackedBvh, o, d, excl_idx, t_init):
     0 where no triangle beats t_init."""
     n = o.shape[0]
     dev = o.device
-    walk = pt.walk
+    walk = walk_nodes(pt.nodes)
     slots = pt.tris.reshape(-1, PACK_LEAF, TRI_STRIDE)
     t_best = t_init.clone()
     gid_best = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -263,14 +300,16 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
 
 
 def _check_launch(pt: PackedBvh, o, d, excl_idx, t_init):
-    """What the kernel takes: float32 tables of (M, 128), (R, 128) and
-    (M, 12) rows, 16-byte aligned; lanes o, d (N, 3) f32, excl_idx (N,)
-    i32, t_init (N,) f32; every tensor contiguous and on o's device."""
+    """What the kernel takes: the leaf rows, (R, 128) f32, and the tree,
+    (M, NODE_FLOATS) f32 with a root, both 16-byte aligned; lanes o, d
+    (N, 3) f32, excl_idx (N,) i32, t_init (N,) f32; every tensor
+    contiguous and on o's device."""
     dev, n = o.device, o.shape[0]
-    _check("nodes", pt.nodes, torch.float32, (pt.nodes.shape[0], 128), dev)
     _check("tris", pt.tris, torch.float32, (pt.tris.shape[0], 128), dev)
-    _check("walk", pt.walk, torch.float32, (pt.nodes.shape[0], WALK_FLOATS), dev)
-    for name, x in (("tris", pt.tris), ("walk", pt.walk)):
+    _check("tree", pt.tree, torch.float32, (pt.tree.shape[0], NODE_FLOATS), dev)
+    if pt.tree.shape[0] == 0:
+        raise ValueError("the tree has no root")
+    for name, x in (("tris", pt.tris), ("tree", pt.tree)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
                              "float4)")
@@ -284,7 +323,7 @@ def _check_launch(pt: PackedBvh, o, d, excl_idx, t_init):
 
 @torch.no_grad()
 def closest_hit_packet(pt: PackedBvh, o, d, excl_idx, t_init):
-    """Closest triangle hit per lane by the skip-link walk: (t, gid, ent),
+    """Closest triangle hit per lane over the BVH table: (t, gid, ent),
     t == BIG (gid = ent = 0) where nothing beats t_init.  o, d (N, 3) f32;
     excl_idx (N,) i32 triangle id to skip (-1 none); t_init (N,) f32.  The
     outputs carry no gradient."""
@@ -300,7 +339,7 @@ def closest_hit_packet(pt: PackedBvh, o, d, excl_idx, t_init):
     if n == 0:
         return t, gid, ent
     err = build_kernels().packet_closest_hit(
-        pt.walk.data_ptr(), pt.tris.data_ptr(),
+        pt.tree.data_ptr(), pt.tris.data_ptr(),
         o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
         t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,

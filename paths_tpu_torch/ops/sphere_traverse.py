@@ -10,13 +10,17 @@ and the sphere forms of ``paths_tpu/ops/sorted_traverse.py``
 
 What bounds them on an H100: FP32 issue.  A (ray, slot) pair costs about 25
 FP32 operations while a lane moves about 36 bytes of ray input and output,
-and the table (16 KB at 500 spheres) stays in cache.  The design keeps it
-simple: one thread per ray, warp-wide broadcast reads of each slot, a
-per-lane chunk slab test to skip chunks the ray does not cross before its
-current best, and early return for any-hit.  The arithmetic is IEEE with
-exactly three fused multiply-adds -- where XLA's CPU compilation of the
-reference kernel contracts (see ``_row_test``) -- so the plain versions, the
-kernels and the reference in interpret mode agree bit for bit.
+and the table (16 KB at 500 spheres) stays in cache.  The closest-hit
+kernel walks a tree over the morton-ordered slots (``PackedSpheres.nodes``,
+built on every device; ``_slot_tree``) front to back per lane with the
+shared walk of ``csrc/walk.cuh``, pruning against its running best, with a
+(t, slot index) tie rule, so its answer equals the plain version's
+first-index argmin.  The any-hit kernel walks the chunks in id order with a
+per-lane slab test and returns at the first occluder.  The arithmetic is
+IEEE with exactly three fused multiply-adds -- where XLA's CPU compilation
+of the reference kernel contracts (see ``_row_test``) -- so the plain
+versions, the kernels and the reference in interpret mode agree bit for
+bit.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises -- it never falls back.  Each
@@ -28,7 +32,7 @@ with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,6 +48,18 @@ SPH_PER_ROW = 128 // SPH_STRIDE  # 16
 SPH_ROWS_PER_CHUNK = 2
 BIG = 3.4e38
 DEAD = 1e29  # a lane whose origin x is past this is dead (a miss)
+# The closest-hit kernel's tree over the slots (PackedSpheres.nodes): at
+# most SPH_LEAF slots a leaf, a range split at its highest differing morton
+# bit (scripts/sphere_hierarchy_shapes.py: the fewest box and slot tests
+# per lane on stress-500, and the fastest K1 on an H100), floats per node
+# ([lo.xyz ref | hi.xyz aux]), the relative pad of a leaf box
+# (csrc/row_tests.cuh kBoxPad) and the walk's stack (csrc/walk.cuh kStack),
+# which bounds the tree's depth.
+SPH_LEAF = 4
+SPH_SPLIT = "morton"
+NODE_FLOATS = 8
+BOX_PAD = 1e-4
+WALK_STACK = 64
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"sphere_closest_hit": 0, "sphere_any_hit": 0}
@@ -57,22 +73,75 @@ def reset_launch_counts() -> None:
 class PackedSpheres(NamedTuple):
     tris: torch.Tensor  # (R, 128) f32 rows of 16 sphere slots
     chunk_meta: torch.Tensor  # (Cpad, 128) f32: [lo.xyz, hi.xyz, row0, nrows]
+    # (M, NODE_FLOATS) f32, the closest-hit kernel's tree over the slots
+    # (_slot_tree); the reference has none.  None only for a table rebuilt
+    # from the reference's arrays (scene/types.py::scene_from_numpy): the
+    # plain versions do not read it, the closest-hit kernel refuses a table
+    # without it.
+    nodes: Optional[torch.Tensor] = None
 
 
-def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
-                         rows_per_chunk: int = SPH_ROWS_PER_CHUNK, device="cpu"):
-    """Pack spheres (numpy (S,3), (S,)) into chunks of rows_per_chunk rows.
-    Slot layout
-    [cx cy cz r^2 gid ent 0 0]; empty slots have r^2 = -1 and gid = -1.
-    Spheres are morton-sorted so chunk AABBs stay tight; the gid written is
-    gid0 + position in the sorted order.  Returns (PackedSpheres, n_chunks,
-    order).  Bit-exact with the reference package's packer."""
-    S = len(radii)
+# The fields that the reference's table (pallas_traverse.py::ChunkedSpheres)
+# has too, bit for bit.
+REFERENCE_FIELDS = ("tris", "chunk_meta")
+
+
+def _split_at(codes, a: int, b: int, split: str) -> int:
+    """Where the slot range [a, b) splits: at the first code with the
+    highest bit in which codes[a] and codes[b - 1] differ set (split
+    "morton"; codes ascend), or halfway (split "halving", and "morton" on a
+    range of one code)."""
+    x = int(codes[a]) ^ int(codes[b - 1])
+    if split == "morton" and x:
+        bit = 1 << (x.bit_length() - 1)
+        return a + int(np.argmax((codes[a:b] & bit) != 0))
+    return (a + b) // 2
+
+
+def _slot_tree(lo, hi, codes, leaf: int = SPH_LEAF, split: str = SPH_SPLIT):
+    """The closest-hit kernel's tree over the table's slots (csrc/walk.cuh):
+    a binary tree over contiguous ranges of the morton-ordered slots, in
+    preorder (root 0), as (M, NODE_FLOATS) f32 rows [lo.xyz ref | hi.xyz
+    aux].  A range of at most `leaf` slots is a leaf, ref = -1 - its first
+    slot and aux = its slot count; a larger one is split (_split_at) into
+    an inner node with ref = its left child (the next node) and aux = its
+    right child.  lo, hi (S, 3) f32: each sphere's box.  A leaf's box is
+    its spheres' box padded by kBoxPad's rule, pad = BOX_PAD * (|lo| + |hi|
+    + (hi - lo)) + 1e-6 per axis in f32, an inner node's the union of its
+    children's, so f32 rounding of a box can only keep a slot.  Raises if
+    the tree is deeper than WALK_STACK inner levels."""
+    rows = []  # [lo(3), ref, hi(3), aux] per node, in preorder
+
+    def node(a, b, depth):
+        if depth > WALK_STACK:
+            raise ValueError(f"the sphere tree is deeper than the walk stack "
+                             f"({WALK_STACK} inner levels)")
+        i = len(rows)
+        rows.append(None)
+        if b - a <= leaf:
+            blo, bhi = lo[a:b].min(0), hi[a:b].max(0)
+            pad = np.float32(BOX_PAD) * (np.abs(blo) + np.abs(bhi) + (bhi - blo)) \
+                + np.float32(1e-6)
+            rows[i] = (blo - pad, -1 - a, bhi + pad, b - a)
+            return rows[i][0], rows[i][2]
+        m = _split_at(codes, a, b, split)
+        llo, lhi = node(a, m, depth + 1)
+        right = len(rows)
+        rlo, rhi = node(m, b, depth + 1)
+        rows[i] = (np.minimum(llo, rlo), i + 1, np.maximum(lhi, rhi), right)
+        return rows[i][0], rows[i][2]
+
+    node(0, len(lo), 0)
+    out = np.zeros((len(rows), NODE_FLOATS), np.float32)
+    for i, (blo, ref, bhi, aux) in enumerate(rows):
+        out[i, 0:3], out[i, 3], out[i, 4:7], out[i, 7] = blo, ref, bhi, aux
+    return out
+
+
+def morton_codes(centers) -> np.ndarray:
+    """30-bit morton codes of the centres (S, 3), quantised to 10 bits an
+    axis over their bounding box: the packer's sort key."""
     c = np.asarray(centers, np.float64)
-    r = np.asarray(radii, np.float64)
-    if ent is None:
-        ent = np.zeros(S, np.int64)
-    ent = np.asarray(ent)
     lo, hi = c.min(0), c.max(0)
     ext = np.where(hi - lo > 0, hi - lo, 1.0)
     q = np.clip(((c - lo) / ext * 1023).astype(np.int64), 0, 1023)
@@ -84,8 +153,28 @@ def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
         x = (x | (x << 2)) & 0x09249249
         return x
 
-    order = np.argsort(spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2))
-    c, r, ent = c[order], r[order], ent[order]
+    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+
+
+def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
+                         rows_per_chunk: int = SPH_ROWS_PER_CHUNK, device="cpu"):
+    """Pack spheres (numpy (S,3), (S,)) into chunks of rows_per_chunk rows.
+    Slot layout
+    [cx cy cz r^2 gid ent 0 0]; empty slots have r^2 = -1 and gid = -1.
+    Spheres are morton-sorted so chunk AABBs stay tight; the gid written is
+    gid0 + position in the sorted order.  Returns (PackedSpheres, n_chunks,
+    order).  Rows and meta are bit-exact with the reference package's
+    packer; the port adds the closest-hit kernel's tree over the slots
+    (_slot_tree)."""
+    S = len(radii)
+    c = np.asarray(centers, np.float64)
+    r = np.asarray(radii, np.float64)
+    if ent is None:
+        ent = np.zeros(S, np.int64)
+    ent = np.asarray(ent)
+    codes = morton_codes(c)
+    order = np.argsort(codes)
+    c, r, ent, codes = c[order], r[order], ent[order], codes[order]
 
     R = -(-S // SPH_PER_ROW)
     n_chunks = -(-R // rows_per_chunk)
@@ -113,8 +202,11 @@ def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
         meta[k, 6] = k * rows_per_chunk
         meta[k, 7] = min((k + 1) * rows_per_chunk, R) - k * rows_per_chunk
     meta = np.pad(meta, ((0, (-len(meta)) % 8), (0, 0)))  # 8-row multiple
+    nodes = _slot_tree((c - r[:, None]).astype(np.float32),
+                       (c + r[:, None]).astype(np.float32), codes) if S else None
     packed = PackedSpheres(tris=torch.from_numpy(rows).to(device),
-                           chunk_meta=torch.from_numpy(meta).to(device))
+                           chunk_meta=torch.from_numpy(meta).to(device),
+                           nodes=None if nodes is None else torch.from_numpy(nodes).to(device))
     return packed, n_chunks, order
 
 
@@ -226,7 +318,7 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         lib = native.load_library("sphere_traverse.cu", native.nvcc(),
                                   native.NVCC_FLAGS, verbose)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sphere_closest_hit.argtypes = [p, p, i, p, p, p, p, i, p, p, p, p]
+        lib.sphere_closest_hit.argtypes = [p, p, p, p, p, p, i, p, p, p, p]
         lib.sphere_closest_hit.restype = i
         lib.sphere_any_hit.argtypes = [p, p, i, p, p, p, p, p, i, p, p]
         lib.sphere_any_hit.restype = i
@@ -263,6 +355,22 @@ def _check_launch(ps: PackedSpheres, n_chunks, o, d, excl_idx, lane_args):
         raise ValueError("too many lanes for one launch")
 
 
+def _check_nodes(ps: PackedSpheres, device):
+    """What the closest-hit walk reads besides the table: the tree,
+    (M, NODE_FLOATS) f32 rows with a root on the lanes' device, contiguous,
+    and the table and tree 16-byte aligned (read as float4)."""
+    if ps.nodes is None:
+        raise ValueError("the table has no tree (nodes): pack it with "
+                         "pack_spheres_chunked")
+    _check("nodes", ps.nodes, torch.float32, (ps.nodes.shape[0], NODE_FLOATS), device)
+    if ps.nodes.shape[0] == 0:
+        raise ValueError("the tree has no root")
+    for name, x in (("table", ps.tris), ("nodes", ps.nodes)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
+                             "float4)")
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
@@ -271,14 +379,16 @@ def _raise_on(err: int, name: str):
 def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
                         t_init):
     """Closest small-sphere hit per lane: (t, gid, ent), t == BIG (gid = ent
-    = 0) where nothing beats t_init.  o, d (N,3) f32; excl_idx (N,) i32 sphere
-    id to skip (-1 none); t_init (N,) f32."""
+    = 0) where nothing beats t_init, the first slot among the nearest.  o, d
+    (N,3) f32; excl_idx (N,) i32 sphere id to skip (-1 none); t_init (N,)
+    f32.  The kernel walks ps.nodes (n_chunks is checked, not read)."""
     if o.device.type == "cpu":
         return closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_launch(ps, n_chunks, o, d, excl_idx,
                   [("t_init", t_init, torch.float32)])
+    _check_nodes(ps, o.device)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     gid = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -287,7 +397,7 @@ def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
         return t, gid, ent
     lib = build_kernels()
     err = lib.sphere_closest_hit(
-        ps.tris.data_ptr(), ps.chunk_meta.data_ptr(), n_chunks,
+        ps.tris.data_ptr(), ps.nodes.data_ptr(),
         o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
         t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,

@@ -101,9 +101,17 @@ REFERENCE_FIELDS = ("tris", "chunk_meta", "tri_ent")
 
 def _leaf_map(flat, T):
     """Primitive -> (row, slot) for the leaf-row layout; prim ranges are
-    contiguous in leaf order.  Returns (row, slot, leaf_start)."""
+    contiguous in leaf order.  Returns (row, slot, leaf_start).  Raises
+    unless the leaves, in preorder, cover [0, T) in ascending ranges: then
+    a leaf's row is its rank in preorder, so the table's order is the
+    preorder of its slots, which the walk kernels' tie rule relies on."""
     is_leaf = flat.prim_count > 0
     leaf_start = flat.prim_start[is_leaf]  # (R,) ascending, partitions [0,T)
+    ends = leaf_start + flat.prim_count[is_leaf]
+    if T and (leaf_start[0] != 0 or ends[-1] != T
+              or (leaf_start[1:] != ends[:-1]).any()):
+        raise ValueError("the BVH's leaves do not cover the triangles in "
+                         "ascending ranges in preorder")
     g = np.arange(T)
     row = np.searchsorted(leaf_start, g, side="right") - 1
     slot = g - leaf_start[row]
@@ -159,17 +167,18 @@ def _pack_rows(flat, v0, v1, v2, n, ent, centers, rows_per_chunk, rpad):
     return rows
 
 
-def _row_hierarchy(flat, row_lo, row_hi, rows_per_chunk):
-    """The kernels' box hierarchy over the table's rows: the BVH's own binary
-    tree (``flat``: prim_count and miss_link in preorder, one leaf per row),
-    one node per BVH node in the same order, as (M, NODE_FLOATS) f32 rows
-    [lo.xyz ref | hi.xyz aux].  An inner node has ref = its left child (the
-    next node in preorder) and aux = its right child (the left child's miss
-    link); a leaf has ref = -1 - row and aux = the row's chunk.  A leaf's box
-    is its row's f32 box (row_lo, row_hi) padded by kBoxPad's rule, pad =
-    BOX_PAD * (|lo| + |hi| + (hi - lo)) + 1e-6 per axis in f32, an inner
-    node's the union of its children's, so a node can only keep a row.
-    Raises if the tree needs more than WALK_STACK stack entries."""
+def _row_hierarchy(flat, row_lo, row_hi, leaf_aux):
+    """A walk kernel's box hierarchy over the table's rows: the BVH's own
+    binary tree (``flat``: prim_count and miss_link in preorder, one leaf
+    per row), one node per BVH node in the same order, as (M, NODE_FLOATS)
+    f32 rows [lo.xyz ref | hi.xyz aux] (csrc/walk.cuh).  An inner node has
+    ref = its left child (the next node in preorder) and aux = its right
+    child (the left child's miss link); a leaf has ref = -1 - row and aux =
+    leaf_aux[row] (K3/K4: the row's chunk; K6: its triangle count).  A
+    leaf's box is its row's f32 box (row_lo, row_hi) padded by kBoxPad's
+    rule, pad = BOX_PAD * (|lo| + |hi| + (hi - lo)) + 1e-6 per axis in f32,
+    an inner node's the union of its children's, so a node can only keep a
+    row.  Raises if the tree needs more than WALK_STACK stack entries."""
     count = np.asarray(flat.prim_count)
     leaf = count > 0
     n_leaves = int(leaf.sum())
@@ -201,7 +210,7 @@ def _row_hierarchy(flat, row_lo, row_hi, rows_per_chunk):
     hi[leaf] = row_hi + pad
     ref = np.zeros(m, np.float32)
     aux = np.zeros(m, np.float32)
-    ref[leaf], aux[leaf] = -1 - rows, rows // rows_per_chunk
+    ref[leaf], aux[leaf] = -1 - rows, np.asarray(leaf_aux)[:n_leaves]
     ref[inner], aux[inner] = left, right
     right_of = np.zeros(m, np.int64)
     right_of[inner] = right
@@ -260,7 +269,7 @@ def pack_chunked(flat, v0, v1, v2, n, ent=None,
     tris = _pack_rows(flat, v0, v1, v2, n, ent_rows, centers, rows_per_chunk, rpad)
     tri_ent = (np.zeros(max(T, 1), np.int32) if ent is None
                else np.asarray(ent, np.int32))
-    nodes = _row_hierarchy(flat, row_lo, row_hi, rows_per_chunk)
+    nodes = _row_hierarchy(flat, row_lo, row_hi, np.arange(rpad) // rows_per_chunk)
     packed = PackedTris(tris=torch.from_numpy(_pad8(tris)),
                         chunk_meta=torch.from_numpy(_pad8(meta)),
                         tri_ent=torch.from_numpy(tri_ent),

@@ -20,11 +20,10 @@ meshes of more than 64 triangles in all are BVH-ordered and packed for the
 triangle kernels (the reference's accelerator or forced-kernel build), and
 at most 64 take the unrolled scan in the integrator.  With an integer
 ``bvh_threshold`` the reference's CPU rule applies instead: more triangles
-than that take the BVH route (the skip-link BVH, walked by
-``bvh/traverse.py`` on the CPU and by the K6 kernel on the card, whose
-table is packed only when the scene is on the card), and at most that many
-take the scan.  No other choice depends on the device: on the CPU the
-kernel wrappers run their plain versions.
+than that take the BVH route (the skip-link BVH packed for K6,
+``ops/packet_traverse.py``), and at most that many take the scan.  No
+choice depends on the device: on the CPU the kernel wrappers run their
+plain versions.
 """
 
 from __future__ import annotations
@@ -47,7 +46,7 @@ from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene import desc as D
 from paths_tpu_torch.scene.models import ModelLibrary
-from paths_tpu_torch.scene.types import BvhArrays, SceneArrays, SceneStatic
+from paths_tpu_torch.scene.types import SceneArrays, SceneStatic
 
 _NO_SUB = (M.LAMBERTIAN, np.zeros(3), 0.0, 0.0, 0.0)  # (mtype, albedo, r0, metal, rough)
 
@@ -257,7 +256,7 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
     ptris = None
     tri_chunks = 0
     tri_rows = TT.ROWS_PER_CHUNK
-    bvh = pbvh = None
+    pbvh = None
     n_tris = sum(len(p["v0"]) for p in tri_parts)
     if n_tris:
         tri = {k: np.concatenate([p[k] for p in tri_parts]) for k in tri_parts[0]}
@@ -268,11 +267,8 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
                              leaf_size=PK.PACK_LEAF)
             tri = {k: v[flat.order] for k, v in tri.items()}
             if use_bvh:
-                bvh = BvhArrays(*(torch.as_tensor(getattr(flat, f), device=device)
-                                  for f in BvhArrays._fields))
-                if device.type == "cuda":
-                    pbvh = PK.pack_bvh(flat, tri["v0"], tri["v1"], tri["v2"],
-                                       tri["n"], ent=tri["ent"], device=device)
+                pbvh = PK.pack_bvh(flat, tri["v0"], tri["v1"], tri["v2"],
+                                   tri["n"], ent=tri["ent"], device=device)
             else:
                 ptris, tri_chunks, tri_rows = TT.pack_tris(
                     flat, tri["v0"], tri["v1"], tri["v2"], tri["n"],
@@ -337,7 +333,6 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
         sky=sky_arr,
         psph=psph,
         ptris=ptris,
-        bvh=bvh,
         pbvh=pbvh,
     )
     static = SceneStatic(
@@ -352,7 +347,7 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
         n_tris=n_tris,
         tri_chunks=tri_chunks,
         tri_rows=tri_rows,
-        use_bvh=bvh is not None,
+        use_bvh=pbvh is not None,
     )
     cam = make_camera(
         width=sd.camera.image_width,

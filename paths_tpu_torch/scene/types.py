@@ -11,8 +11,8 @@ material SoA and light emission.  ``SceneArrays`` holds the tensors,
 
 Triangles take one of three routes, chosen at build (``scene/build.py``):
 the packed triangle table and its kernels (``ptris``), the skip-link BVH
-(``use_bvh``: ``bvh`` for the walk on the CPU, ``pbvh`` for the kernel on
-the card), or, for small meshes, an unrolled scan of the scene arrays.  The
+(``use_bvh``: ``pbvh``, the K6 table, on every device), or, for small
+meshes, an unrolled scan of the scene arrays.  The
 reference's TPU schedule fields (one-hot tables, interpret mode, block
 widths, streamed and replicated triangle tables, wave presorting, occlusion
 sorting) have no counterpart here.
@@ -21,28 +21,18 @@ sorting) have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import types
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops.packet_traverse import PackedBvh
 from paths_tpu_torch.ops.sphere_traverse import PackedSpheres
 from paths_tpu_torch.ops.tri_traverse import REFERENCE_FIELDS, PackedTris
 from paths_tpu_torch.sky import Sky
-
-
-class BvhArrays(NamedTuple):
-    """The skip-link BVH (``bvh/build.py::FlatBvh``) as tensors, for the
-    walk of ``bvh/traverse.py``."""
-
-    node_min: torch.Tensor  # (M, 3) f32
-    node_max: torch.Tensor  # (M, 3) f32
-    hit_link: torch.Tensor  # (M,) int32
-    miss_link: torch.Tensor  # (M,) int32
-    prim_start: torch.Tensor  # (M,) int32
-    prim_count: torch.Tensor  # (M,) int32 (0 for an inner node)
 
 
 class SceneArrays(NamedTuple):
@@ -105,9 +95,8 @@ class SceneArrays(NamedTuple):
     # Packed triangle table for the traversal kernels (None unless the
     # triangles take the kernel route).
     ptris: Optional[PackedTris] = None
-    # The skip-link BVH of the BVH route (None on the other routes), and its
-    # packed table for the K6 kernel (only when the scene is on the card).
-    bvh: Optional[BvhArrays] = None
+    # The skip-link BVH's packed table for K6 (None unless the triangles
+    # take the BVH route).
     pbvh: Optional[PackedBvh] = None
 
 
@@ -164,11 +153,14 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
     sky, ``psph.tris``/``psph.chunk_meta`` for the packed sphere table and
     ``ptris.tris``/``ptris.chunk_meta``/``ptris.tri_ent`` for the packed
     triangle table (the reference's replicated table is not read) and
-    ``bvh.<field>`` for the BVH arrays.  ``pbvh`` and ``ptris.nodes`` stay
-    None: the K6 table is packed from the f64 triangles and the triangle
-    kernels' hierarchy from the BVH's tree, which only the scene build has,
-    and the plain versions that the CPU runs read neither.
-    Returns (SceneStatic, SceneArrays) on ``device``."""
+    ``bvh.<field>`` for the reference's BVH arrays (node_min, node_max,
+    hit_link, miss_link, prim_start, prim_count), from which ``pbvh``, the
+    K6 table, is packed with the scene's f32 triangles (the scene build
+    packs it from the f64 ones, so inv_area and n.v0 may differ by a
+    rounding).  ``psph.nodes`` and ``ptris.nodes`` stay None: the walk
+    kernels' trees are built from the f64 spheres and the BVH's tree,
+    which only the scene build has, and the plain versions that the CPU
+    runs read neither.  Returns (SceneStatic, SceneArrays) on ``device``."""
     names = {f.name for f in dataclasses.fields(SceneStatic)}
     kw = {}
     for k, v in static_fields.items():
@@ -201,13 +193,25 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
                 PackedTris(*(tensor(arrays[f"ptris.{f}"]) for f in REFERENCE_FIELDS))
                 if "ptris.tris" in arrays else None
             )
-        elif name == "bvh":
-            fields[name] = (
-                BvhArrays(*(tensor(arrays[f"bvh.{f}"]) for f in BvhArrays._fields))
-                if "bvh.node_min" in arrays else None
-            )
         elif name == "pbvh":
-            fields[name] = None
+            fields[name] = _pack_reference_bvh(arrays, device)
         else:
             fields[name] = tensor(arrays[name])
     return static, SceneArrays(**fields)
+
+
+_BVH_FIELDS = ("node_min", "node_max", "hit_link", "miss_link", "prim_start",
+               "prim_count")
+
+
+def _pack_reference_bvh(arrays: dict, device) -> Optional[PackedBvh]:
+    """The K6 table of the reference's BVH arrays (``bvh.<field>``) and its
+    f32 triangles in the BVH's order, or None when it has no BVH."""
+    if "bvh.node_min" not in arrays:
+        return None
+    flat = types.SimpleNamespace(**{f: np.asarray(arrays[f"bvh.{f}"])
+                                    for f in _BVH_FIELDS})
+    flat.n_nodes = len(flat.prim_count)
+    f64 = lambda k: np.asarray(arrays[k], np.float32).astype(np.float64)
+    return PK.pack_bvh(flat, f64("tri_v0"), f64("tri_v1"), f64("tri_v2"),
+                       f64("tri_n"), ent=np.asarray(arrays["tri_ent"]), device=device)

@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import types
 
 import numpy as np
 import torch
@@ -34,22 +33,12 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))  # the walk emulation the tests use
 
 from paths_tpu_torch import camera as C  # noqa: E402
+from paths_tpu_torch.ops import packet_traverse as PK  # noqa: E402
 from paths_tpu_torch.ops import tri_traverse as TT  # noqa: E402
 from paths_tpu_torch.render import gen_camera_rays  # noqa: E402
 from paths_tpu_torch.scene.build import build_scene  # noqa: E402
 from paths_tpu_torch.scene.yaml_loader import load_scene_description  # noqa: E402
-from tri_walk_cases import BIG, flat_over, walk  # noqa: E402
-
-
-def levels(nodes):
-    """The tree's levels (nodes on its longest root-to-leaf path)."""
-    ref, aux = nodes[:, 3].astype(np.int64), nodes[:, 7].astype(np.int64)
-    level, n = np.array([0]), 0
-    while len(level):
-        n += 1
-        inner = level[ref[level] >= 0]
-        level = np.concatenate([ref[inner], aux[inner]])
-    return n
+from tri_walk_cases import BIG, flat_over, levels, walk  # noqa: E402
 
 
 def main() -> int:
@@ -61,8 +50,7 @@ def main() -> int:
     for name in ("doom_standin", "dragon_standin"):
         sd = load_scene_description(os.path.join(REPO, "scenes", f"{name}.yml"))
         static, scene, cam = build_scene(sd, device="cpu", bvh_threshold=0)
-        flat = types.SimpleNamespace(**{k: getattr(scene.bvh, k).numpy()
-                                        for k in ("prim_count", "prim_start", "miss_link")})
+        flat = PK.tree_shape(scene.pbvh)
         tris = [getattr(scene, f"tri_{k}").double().numpy() for k in ("v0", "v1", "v2", "n")]
         pt, nc, rows_per_chunk = TT.pack_tris(flat, *tris, ent=scene.tri_ent.numpy())
         sizes = flat.prim_count[flat.prim_count > 0]

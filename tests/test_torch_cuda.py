@@ -15,7 +15,7 @@ from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
-from tri_walk_cases import ties_case
+from tri_walk_cases import full_flat, sphere_ties_case, ties_case
 
 torch.set_num_threads(2)
 
@@ -72,6 +72,33 @@ def test_any_hit_kernel_matches_plain(dev):
     want = ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max)
     assert torch.equal(got, want)
     assert int(got.sum()) > N // 8
+
+
+@pytest.mark.cuda
+def test_closest_hit_kernel_holds_exact_ties(dev):
+    """K1's walk on spheres that share a pole (tests/tri_walk_cases.py:
+    exact t ties between slots of different leaves), with t_init set to
+    the exact nearest hit on a third of the lanes: equal to the plain
+    version bit for bit."""
+    (c, r, ent), lanes = sphere_ties_case()
+    ps, nc, _ = ST.pack_spheres_chunked(c, r, ent=ent, device=dev)
+    o, d, excl, t_init, _, _ = (torch.as_tensor(np.array(a), device=dev) for a in lanes)
+    first = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
+    lane = torch.arange(o.shape[0], device=dev)
+    t_init = torch.where((lane % 3 == 0) & (first < 3.4e38), first, t_init).contiguous()
+    got = ST.closest_hit_spheres(ps, nc, o, d, excl, t_init)
+    for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    assert int((got[0] < 3.4e38).sum()) > o.shape[0] // 4
+
+
+@pytest.mark.cuda
+def test_closest_hit_wrapper_refuses_a_table_without_tree(dev):
+    ps, nc, (o, d, excl, t_init, _, _) = _scene_and_rays(dev)
+    with pytest.raises(ValueError, match="tree"):
+        ST.closest_hit_spheres(ps._replace(nodes=None), nc, o, d, excl, t_init)
+    with pytest.raises(ValueError):
+        ST.closest_hit_spheres(ps._replace(nodes=ps.nodes.cpu()), nc, o, d, excl, t_init)
 
 
 @pytest.mark.cuda
@@ -297,4 +324,23 @@ def test_packet_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         PK.closest_hit_packet(pt, o, d.t().contiguous().t(), excl, t_init)
     with pytest.raises(ValueError):
-        PK.closest_hit_packet(pt._replace(walk=pt.walk.cpu()), o, d, excl, t_init)
+        PK.closest_hit_packet(pt._replace(tree=pt.tree.cpu()), o, d, excl, t_init)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [TT.ROWS_PER_CHUNK, TT.ROWS_PER_CHUNK_LARGE])
+def test_packet_kernel_holds_exact_ties(dev, rows):
+    """K6's walk on the table of duplicated triangles whose ties are exact
+    (tests/tri_walk_cases.py, one leaf a row), with t_init set to the exact
+    nearest hit on a third of the lanes: equal to the plain version (the
+    skip-link walk) bit for bit."""
+    (flat, v0, v1, v2, n, ent), lanes = ties_case(rows, 13)
+    pt = PK.pack_bvh(full_flat(flat, v0, v1, v2), v0, v1, v2, n, ent=ent, device=dev)
+    o, d, excl, t_init, _, _ = (torch.as_tensor(np.array(a), device=dev) for a in lanes)
+    first = PK.closest_hit_packet_plain(pt, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
+    lane = torch.arange(o.shape[0], device=dev)
+    t_init = torch.where((lane % 3 == 0) & (first < 3.4e38), first, t_init).contiguous()
+    got = PK.closest_hit_packet(pt, o, d, excl, t_init)
+    for g, w in zip(got, PK.closest_hit_packet_plain(pt, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    assert int((got[0] < 3.4e38).sum()) > o.shape[0] // 4

@@ -51,7 +51,6 @@ _EXPECTED = {
     "paths_tpu_torch.scene.obj_loader", "paths_tpu_torch.scene.ply_loader",
     "paths_tpu_torch.scene.yaml_loader", "paths_tpu_torch.scene.build",
     "paths_tpu_torch.integrator", "paths_tpu_torch.ops.packet_traverse",
-    "paths_tpu_torch.bvh.traverse",
 }
 
 

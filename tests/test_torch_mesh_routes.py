@@ -14,23 +14,38 @@ holds the mixed scene (same inputs, 16x16, 3 bounces, relative MSE < 1e-4).
 The BVH route is held the same way, against the reference's CPU build: the
 mixed scene with 8 spheres (no sphere table) and its 128-triangle grid, both
 packages built with bvh_threshold=64 and PATHS_TPU_FORCE_PALLAS unset, so
-the triangles take the skip-link BVH (bvh/traverse.py::closest_hit_bvh on
-the CPU, in both packages) and shadow rays take occlusion from the closest
-hit.  One path_step and one render wave.
+the triangles take the skip-link BVH (the reference's XLA walk
+paths_tpu/bvh/traverse.py::closest_hit_bvh; in the port K6's plain version
+over the K6 table, which the port packs from the reference's BVH arrays)
+and shadow rays take occlusion from the closest hit.  One path_step and one
+render wave; then whole renders of doom_standin and dragon_standin on the
+BVH route (the reference's CPU default, bvh_threshold=32768), both packages
+on the CPU, at 32x24, 1 spp and tests/make_goldens.py's mesh settings
+otherwise (4 bounces, seed 0), held to relative MSE < 1e-4.
 """
+
+import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from paths_tpu import camera as JC
+from paths_tpu import render as JR
 from paths_tpu.scene.build import build_scene as jax_build
 from paths_tpu.scene.stress import generate_mixed_scene as jax_mixed
+from paths_tpu.scene.yaml_loader import load_scene_description as jax_yaml_scene
 
+from paths_tpu_torch import camera as TC
 from paths_tpu_torch import integrator as TI
+from paths_tpu_torch import render as TR
+from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.scene import build as TB
 from paths_tpu_torch.scene.stress import generate_mixed_scene
+from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
-from test_torch_render import _path_step_parity, _render_wave_parity
+from test_torch_render import REPO, _path_step_parity, _rel_mse, _render_wave_parity
 
 torch.set_num_threads(2)
 
@@ -84,20 +99,24 @@ def bvh_route(tmp_path_factory):
 
 
 def test_bvh_route_build_matches_reference(bvh_route):
-    """The same route, BVH and triangle order: every scene array, the BVH
-    arrays included, equal to the reference's."""
+    """The same route, BVH and triangle order: every scene array equal to
+    the reference's, and the K6 table, packed on the CPU too, holding the
+    reference's BVH arrays (boxes, links, leaf counts)."""
     (static, scene, _), (jstatic, jscene, _) = bvh_route
     assert static.use_bvh and jstatic.use_bvh
     assert static.tri_chunks == jstatic.pallas_tri_chunks == 0
     assert static.sph_chunks == jstatic.pallas_sph_chunks == 0
     assert static.n_tris == jstatic.n_tris == 128
-    assert scene.ptris is None and scene.pbvh is None  # K6's table: card only
+    assert scene.ptris is None and scene.pbvh is not None  # K6's table, every device
     for name in scene._fields:
         g, w = getattr(scene, name), getattr(jscene, name, None)
         if name == "sky":
             pairs = [(g.colour_a, w.colour_a), (g.colour_b, w.colour_b)]
-        elif name == "bvh":
-            pairs = [(getattr(g, f), getattr(w, f)) for f in g._fields]
+        elif name == "pbvh":
+            nodes, bvh = g.nodes[: len(jscene.bvh.node_min)], jscene.bvh
+            pairs = [(nodes[:, 0:3], bvh.node_min), (nodes[:, 3:6], bvh.node_max),
+                     (nodes[:, 6], bvh.hit_link), (nodes[:, 7], bvh.miss_link),
+                     (nodes[:, 9], bvh.prim_count)]
         elif g is None:
             continue
         else:
@@ -113,9 +132,9 @@ def test_bvh_threshold_none_keeps_the_kernel_route(tmp_path):
     sd = generate_mixed_scene(str(tmp_path), n_spheres=8)
     static, scene, _ = TB.build_scene(sd, device="cpu")
     assert static.tri_chunks > 0 and not static.use_bvh
-    assert scene.ptris is not None and scene.bvh is None
+    assert scene.ptris is not None and scene.pbvh is None
     static, scene, _ = TB.build_scene(sd, device="cpu", bvh_threshold=128)
-    assert static.tri_chunks == 0 and not static.use_bvh and scene.bvh is None
+    assert static.tri_chunks == 0 and not static.use_bvh and scene.pbvh is None
 
 
 def test_path_step_bvh_route_matches_reference(bvh_route):
@@ -128,3 +147,34 @@ def test_path_step_bvh_route_matches_reference(bvh_route):
 
 def test_render_wave_bvh_route_matches_reference(bvh_route):
     _render_wave_parity(*bvh_route[1], n_waves=1)
+
+
+@pytest.mark.parametrize("name", ["doom_standin", "dragon_standin"])
+def test_bvh_route_render_matches_reference(name, monkeypatch):
+    """A whole mesh render on the BVH route, the port (K6's plain version)
+    against the reference (its XLA walk), both on the CPU: 32x24, 1 spp, 4
+    bounces, seed 0, relative MSE < 1e-4."""
+    monkeypatch.delenv("PATHS_TPU_FORCE_PALLAS", raising=False)
+    path = os.path.join(REPO, "scenes", f"{name}.yml")
+    W, H = 32, 24
+    jstatic, jscene, jcam = jax_build(jax_yaml_scene(path), bvh_threshold=32768)
+    assert jstatic.use_bvh
+    jstatic = dataclasses.replace(jstatic, max_bounces=4)
+    want = np.asarray(JR.render_image(jstatic, jscene, JC.resize(jcam, W, H), W, H,
+                                      spp=1, seed=0))
+    calls = {"k6": 0}
+    k6 = PK.closest_hit_packet
+
+    def count(*args):
+        calls["k6"] += 1
+        return k6(*args)
+
+    monkeypatch.setattr(PK, "closest_hit_packet", count)
+    static, scene, cam = TB.build_scene(load_scene_description(path), device="cpu",
+                                        bvh_threshold=32768)
+    assert static.use_bvh and scene.pbvh is not None
+    static = dataclasses.replace(static, max_bounces=4)
+    got = TR.render_image(static, scene, TC.resize(cam, W, H), W, H, spp=1, seed=0)
+    assert got.shape == want.shape and np.isfinite(got).all() and got.max() > 0
+    assert calls["k6"] > 0
+    assert _rel_mse(got, want) < 1e-4

@@ -28,6 +28,7 @@ from paths_tpu.scene.yaml_loader import load_scene_description as jax_yaml_scene
 
 from paths_tpu_torch.bvh.build import build_bvh
 from paths_tpu_torch.geom import triangle as TG
+from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene import build as TB
 from paths_tpu_torch.scene import models as TM
@@ -271,12 +272,12 @@ def _check_build(got, want):
         g, w = getattr(scene, name), getattr(jscene, name, None)
         if name == "sky":
             pairs = [(g.colour_a, w.colour_a), (g.colour_b, w.colour_b)]
-        elif name in ("psph", "ptris", "bvh"):
+        elif name in ("psph", "ptris"):
             assert (g is None) == (w is None), name
-            fields = TT.REFERENCE_FIELDS if name == "ptris" else getattr(g, "_fields", ())
+            fields = TT.REFERENCE_FIELDS if name == "ptris" else ST.REFERENCE_FIELDS
             pairs = [] if g is None else [(getattr(g, f), getattr(w, f)) for f in fields]
-        elif name == "pbvh":  # the K6 table: the port's, on the card only
-            assert g is None
+        elif name == "pbvh":  # the K6 table: the BVH route's only
+            assert g is None and jscene.bvh is None
             pairs = []
         else:
             pairs = [(g, w)]

@@ -79,12 +79,10 @@ def _as_numpy(jscene):
             if jscene.ptris is not None:
                 for f in ("tris", "chunk_meta", "tri_ent"):
                     out[f"ptris.{f}"] = np.asarray(getattr(jscene.ptris, f))
-        elif name == "bvh":
+        elif name == "pbvh":  # packed by scene_from_numpy from the BVH arrays
             if jscene.bvh is not None:
                 for f in jscene.bvh._fields:
                     out[f"bvh.{f}"] = np.asarray(getattr(jscene.bvh, f))
-        elif name == "pbvh":  # the port's K6 table; the reference has none
-            continue
         else:
             out[name] = np.asarray(getattr(jscene, name))
     return out

@@ -3,9 +3,10 @@ of the closest-hit (K1) and any-hit (K2) sphere traversal kernels, held
 against the reference package's packer and its Pallas sorted-walk kernels
 run in interpret mode (as tests/test_sorted_traverse.py runs them).
 
-Packing is bit-exact.  The plain versions are flat brute force over every
-slot; the sorted walk visits a conservative superset of the chunks a lane
-can hit, so t, gid, ent and the occluded flag must be equal exactly.
+Packing is bit-exact (rows and meta; the tree over the slots is the
+port's own).  The plain versions are flat brute force over every slot; the
+sorted walk visits a conservative superset of the chunks a lane can hit,
+so t, gid, ent and the occluded flag must be equal exactly.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there.
@@ -23,7 +24,12 @@ from paths_tpu.ops.sorted_traverse import (
     occludes_spheres_sorted,
 )
 
+from paths_tpu_torch import camera as TC
+from paths_tpu_torch import render as TR
 from paths_tpu_torch.ops import sphere_traverse as ST
+from paths_tpu_torch.scene import build as TB
+from paths_tpu_torch.scene.stress import generate_stress_scene
+from tri_walk_cases import BIG, slot_range, sphere_ties_case, walk
 
 torch.set_num_threads(2)
 
@@ -126,3 +132,182 @@ def test_launch_checks_reject_bad_inputs(packed):
         ST._check_launch(tps, tn, o, d.t().contiguous().t(), excl, seed)
     with pytest.raises(ValueError):
         ST._check_launch(tps, tps.chunk_meta.shape[0] + 1, o, d, excl, seed)
+
+
+# ---------------------------------------------------------------- the tree
+
+# The closest-hit kernel (K1) walks a tree over the morton-ordered slots
+# (PackedSpheres.nodes) front to back through csrc/walk.cuh; the tests below
+# hold the tree's boxes and shape, and the Python emulation of that walk
+# (tests/tri_walk_cases.py::walk, the same stack, pruning and tie rule, in
+# f32) against the plain version, bit for bit: on the 40 spheres above, on
+# stress-500 (primary and incoherent lanes, zero direction components with
+# origins on the tree's box planes, t_init at exact hit distances) and on
+# spheres that share a pole (exact ties between leaves).
+
+def _stress_case(n_lanes=160, seed=5):
+    """stress-500's spheres as the scene build packs them (f64 centres and
+    radii) and lanes: primary camera rays, incoherent rays from inside the
+    spheres' box, rays along an axis from a plane of the tree's boxes,
+    dead lanes, exclusions, finite t_init."""
+    sd = generate_stress_scene(500)
+    c = np.array([o.sphere.center.tolist() for o in sd.objects])
+    r = np.array([o.sphere.radius for o in sd.objects])
+    ent = np.arange(len(r)) % 7
+    ps, _, _ = ST.pack_spheres_chunked(c, r, ent=ent)
+    rng = np.random.default_rng(seed)
+    static, _, cam = TB.build_scene(sd, device="cpu")
+    cam = TC.resize(cam, 720, 480)
+    pix = torch.as_tensor(rng.integers(0, 720 * 480, n_lanes))
+    o, d, _ = TR.gen_camera_rays(cam, (pix % 720).int(), (pix // 720).int(), pix,
+                                 torch.zeros_like(pix), 0)
+    o, d = o.numpy().astype(np.float32), d.numpy().astype(np.float32)
+    inc = np.arange(n_lanes) % 3 == 1
+    o[inc] = rng.uniform([-50, -50, 0], [50, 50, 100], (int(inc.sum()), 3))
+    g = rng.normal(size=(int(inc.sum()), 3))
+    d[inc] = g / np.linalg.norm(g, axis=1, keepdims=True)
+    axis = np.arange(n_lanes) % 6 == 2  # along an axis, from a box plane
+    ax = rng.integers(0, 3, int(axis.sum()))
+    nodes = ps.nodes.numpy()
+    pick = rng.integers(0, len(nodes), int(axis.sum()))
+    o[axis] = rng.uniform([-50, -50, 0], [50, 50, 100], (int(axis.sum()), 3))
+    o[np.nonzero(axis)[0], (ax + 1) % 3] = nodes[pick, (ax + 1) % 3]  # a box's lo
+    d[axis] = 0.0
+    d[np.nonzero(axis)[0], ax] = rng.choice([-1.0, 1.0], int(axis.sum()))
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    o[7::23] = 1e30  # dead lanes
+    excl = np.where(rng.uniform(size=n_lanes) < 0.2, rng.integers(0, len(r), n_lanes),
+                    -1).astype(np.int32)
+    t_init = np.where(rng.uniform(size=n_lanes) < 0.8, 3.4e38,
+                      rng.uniform(1, 80, n_lanes)).astype(np.float32)
+    return ps, (o, d, excl, t_init)
+
+
+def _tree_case(which):
+    """(PackedSpheres, lanes (o, d, excl, t_init)) of one case."""
+    if which == "spheres40":
+        centers, radii, ents = _spheres()
+        ps, _, _ = ST.pack_spheres_chunked(centers, radii, ent=ents, gid0=3)
+        return ps, _rays()
+    if which == "stress500":
+        return _stress_case()
+    (c, r, ent), lanes = sphere_ties_case()
+    ps, _, _ = ST.pack_spheres_chunked(c, r, ent=ent)
+    return ps, lanes[:4]
+
+
+TREE_CASES = ["spheres40", "stress500", "pole_pairs"]
+
+
+@pytest.mark.parametrize("which", TREE_CASES)
+def test_slot_tree_holds_its_slots(which):
+    """The tree over the slots: preorder, each inner node's left child the
+    next node and its right child after the left subtree; every sphere slot
+    in exactly one leaf, leaves in slot order, at most SPH_LEAF slots each;
+    a leaf's box its spheres' f32 boxes padded by the kernel's rule, an
+    inner node's the union of its children's, so every ancestor holds the
+    padded box of each sphere below it; depth within the walk's stack; and
+    packing again gives the same bytes."""
+    ps, _ = _tree_case(which)
+    nodes = ps.nodes.numpy()
+    ref, aux = nodes[:, 3].astype(np.int64), nodes[:, 7].astype(np.int64)
+    leaf = ref < 0
+    first, count = -1 - ref[leaf], aux[leaf]
+    n_slots = int((ps.tris.numpy().reshape(-1, ST.SPH_STRIDE)[:, 4] >= 0).sum())
+    np.testing.assert_array_equal(first, np.concatenate([[0], np.cumsum(count)[:-1]]))
+    assert count.sum() == n_slots and (count >= 1).all() and (count <= ST.SPH_LEAF).all()
+    inner = np.nonzero(~leaf)[0]
+    np.testing.assert_array_equal(ref[inner], inner + 1)
+    assert (aux[inner] > inner + 1).all()
+    parent = np.full(len(nodes), -1)
+    parent[ref[inner]] = parent[aux[inner]] = inner
+    assert (parent[1:] >= 0).all() and parent[0] == -1
+    depth = np.zeros(len(nodes), np.int64)
+    for i in range(1, len(nodes)):  # parents precede children in preorder
+        depth[i] = depth[parent[i]] + 1
+    assert depth.max() <= ST.WALK_STACK
+
+    slots = ps.tris.numpy().reshape(-1, ST.SPH_STRIDE)[:n_slots]
+    rad = np.sqrt(slots[:, 3].astype(np.float64))
+    for i in np.nonzero(leaf)[0]:
+        s = slots[-1 - ref[i]: -1 - ref[i] + aux[i]]
+        # The f32 box of the f32 spheres, up to the rounding of r from r^2,
+        # lies inside the leaf's box; the leaf's box is no looser than the
+        # pad rule on that box allows.
+        lo = (s[:, 0:3] - rad[-1 - ref[i]: -1 - ref[i] + aux[i], None] * (1 + 1e-6)).min(0)
+        hi = (s[:, 0:3] + rad[-1 - ref[i]: -1 - ref[i] + aux[i], None] * (1 + 1e-6)).max(0)
+        assert (nodes[i, 0:3] < lo).all() and (nodes[i, 4:7] > hi).all()
+        pad = 2e-4 * (np.abs(lo) + np.abs(hi) + (hi - lo)) + 2e-6
+        assert (nodes[i, 0:3] > lo - pad).all() and (nodes[i, 4:7] < hi + pad).all()
+    np.testing.assert_array_equal(nodes[inner, 0:3],
+                                  np.minimum(nodes[ref[inner], 0:3], nodes[aux[inner], 0:3]))
+    np.testing.assert_array_equal(nodes[inner, 4:7],
+                                  np.maximum(nodes[ref[inner], 4:7], nodes[aux[inner], 4:7]))
+    if which == "spheres40":
+        centers, radii, ents = _spheres()
+        again = ST.pack_spheres_chunked(centers, radii, ent=ents, gid0=3)[0]
+        assert again.nodes.numpy().tobytes() == nodes.tobytes()
+
+
+def test_slot_tree_deeper_than_the_stack_is_refused():
+    """A range whose codes peel one slot a level (0, 1, 2, 4, 8, ...) is a
+    chain: built at WALK_STACK inner levels, refused at one more."""
+    def chain(levels):
+        codes = np.array([0] + [2 ** i for i in range(levels)], dtype=object)
+        box = np.zeros((levels + 1, 3), np.float32)
+        return box, box + 1, codes
+
+    nodes = ST._slot_tree(*chain(ST.WALK_STACK), leaf=1)
+    assert nodes.shape[0] == 2 * ST.WALK_STACK + 1
+    with pytest.raises(ValueError, match="stack"):
+        ST._slot_tree(*chain(ST.WALK_STACK + 1), leaf=1)
+
+
+@pytest.mark.parametrize("which", TREE_CASES)
+def test_walk_emulation_equals_plain(which):
+    """K1's walk, emulated lane by lane (walk() over slot ranges), equals
+    the plain version's first-index argmin bit for bit: t, gid and ent.
+    Besides the case's own lanes, t_init set to a lane's exact nearest hit
+    on every fifth (the hit must not count).  On the pole pairs the tie
+    rule must have been taken: a later slot found first, then replaced by
+    an earlier one at the same t."""
+    ps, lanes = _tree_case(which)
+    o, d, excl, t_init = (torch.from_numpy(np.array(a)) for a in lanes)
+    fields = ST._slot_fields(ps.tris)
+    met, t = ST._row_test(fields, o, d, excl, torch.full_like(t_init, float("inf")))
+    first = torch.where(met, t, float("inf")).amin(1)
+    exact = (torch.arange(len(o)) % 5 == 2) & (first < float("inf"))
+    t_init = torch.where(exact, first, t_init)
+    want = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)
+    nodes, met, t = ps.nodes.numpy(), met.numpy(), t.numpy()
+    gid, ent = fields[4].numpy(), fields[5].numpy()
+    ties = 0
+    for i in range(len(o)):
+        w = walk(nodes, met[i], t[i], o[i].numpy(), d[i].numpy(), t_init[i].item(),
+                 leaf=slot_range)
+        assert w.depth <= ST.WALK_STACK
+        ties += w.ties
+        got = (np.float32(w.t if w.t < t_init[i].item() else BIG),
+               gid[w.pos] if w.pos >= 0 else 0, ent[w.pos] if w.pos >= 0 else 0)
+        assert got[0].tobytes() == want[0][i].numpy().tobytes(), i
+        assert got[1:] == (want[1][i].item(), want[2][i].item()), i
+    assert int((want[0] < BIG).sum()) > len(o) // 8
+    assert int(exact.sum()) > 0 and not (want[0][exact] < BIG).any()
+    if which == "pole_pairs":
+        assert ties > 10
+
+
+def test_launch_checks_reject_a_bad_tree(packed):
+    """The closest-hit kernel refuses a table without a tree and one of the
+    wrong dtype, width or alignment."""
+    _, (tps, _, _) = packed
+    ST._check_nodes(tps, tps.tris.device)  # well-formed: no raise
+    with pytest.raises(ValueError, match="tree"):
+        ST._check_nodes(tps._replace(nodes=None), tps.tris.device)
+    with pytest.raises(TypeError):
+        ST._check_nodes(tps._replace(nodes=tps.nodes.double()), tps.tris.device)
+    with pytest.raises(ValueError):
+        ST._check_nodes(tps._replace(nodes=tps.nodes[:, :6].contiguous()), tps.tris.device)
+    misaligned = torch.zeros(tps.nodes.numel() + 1)[1:].view(-1, ST.NODE_FLOATS)
+    with pytest.raises(ValueError, match="aligned"):
+        ST._check_nodes(tps._replace(nodes=misaligned), tps.tris.device)
