@@ -15,7 +15,10 @@ Phases, one line each (any failure exits non-zero before the last line):
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
      exclusions, random excl_ent / t_max); the outputs must be equal;
   4. timing, spheres: CUDA events, median of 25 launches after warm-up, for
-     each kernel and its plain version, beside its bound: the larger of the
+     each kernel and its plain version (a wrapper call from an idle card,
+     the host's part included), and the kernel's device time (25 calls
+     queued behind a spin kernel, so that the host's part is hidden),
+     beside its bound: the larger of the
      needed bytes over 3.35 TB/s and FP32 operations per needed (ray, slot)
      pair over the FP32 peak SMs x 128 x max SM clock (an FMA counts as one).
      A leaf of K1's tree over the slots (at most 4 slots, the finest
@@ -25,15 +28,18 @@ Phases, one line each (any failure exits non-zero before the last line):
      slots for each such lane; the needed bytes are those slots and the
      tree nodes some lane enters, read once, and the lanes' inputs and
      outputs;
-  3g. K1/K2 held equal to their plain versions on 4,096 adversarial lanes of
-     the stress-500 table: rays aimed exactly at sphere centres and grazing
-     spheres (the discriminant within rounding of 0), t_init and t_max at a
-     lane's exact hit and occluder distances, t_max == 0, dead lanes, zero
-     direction components, origins on a plane of the tree's boxes;
+  3g. K1/K2 and both forms of K5 held equal to their plain versions on
+     4,096 adversarial lanes of the stress-500 table: rays
+     aimed exactly at sphere centres and grazing spheres (the discriminant
+     within rounding of 0), t_init and t_max at a lane's exact hit and
+     occluder distances, t_max == 0, dead lanes, zero direction components,
+     origins on a plane of the tree's boxes;
   3c/4c. the same for K5 (the flat kernels) on the same table and frames,
      and for K8 and K9's sphere form on the stress-500 spheres packed at 16
      rows per chunk; a bound belongs to the function, so K5's and K8/K9's
-     are K1/K2's (counted on the leaves of K1's tree over the same rows);
+     are K1/K2's (counted on the leaves of K1's tree over the same rows).
+     K5 tests every slot for every lane, so its all-pairs floor (lanes x
+     slots x OPS_PER_MISSED_PAIR over the FP32 peak) is printed beside;
   3b/4b. parity and timing, triangles: K3/K4 on the doom_standin table (96k
      triangles, 8 rows per chunk) and the dragon_standin table (200k, 20 rows
      per chunk).  The kernels are timed on full 720x480 frames of primary
@@ -80,7 +86,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      kernel and the BVH route under torch.profiler (wall vs device-busy
      time, the kernels' share, launches per bounce iteration); then each
      kernel held against its plain version and timed, as in 3/4, on the
-     inputs that tile's second bounce iteration gave it;
+     inputs that tile's second bounce iteration gave it (on the flat route
+     also K1/K2 on the same rays);
   7. GPU vs CPU: the mixed sphere + mesh scene (a 128-triangle grid, a
      sphere light) at 48x32, 2 spp, 3 bounces, rendered with the kernels and
      with the plain versions on the CPU, must agree to relative MSE < 1e-4:
@@ -88,7 +95,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      K3, K4), and with 8 spheres on the BVH route (bvh_threshold=64: K6 on
      the card, its plain version on the CPU; each of the card's K6 queries
      held bit for bit against the plain version on its inputs).
-Then a JSON line of per-kernel results (ms, plain_ms and bound_ms at the main
+Then a JSON line of per-kernel results (ms, device_ms, plain_ms and bound_ms at the main
 path's tile for K1-K6; at the doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
 doom_*/dragon_* at the shapes of 4, 4b, 4d and 4e), the nvidia-smi name/power
@@ -121,6 +128,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # and a dot product, 18; bx, by's multiplies, 2; bz's subtractions, 2; nine
 # comparisons).
 OPS_PER_PAIR = {"sphere": 25, "tri": 32, "vtri": 53}
+# FP32 operations of a sphere slot whose discriminant is negative, where the
+# flat kernel (K5) stops: 3 subtractions for o - c, b's multiply and two
+# FMAs, c2's multiply, two FMAs and subtraction, the discriminant's FMA and
+# its comparison.  K5 tests every slot for every lane, so lanes x slots x
+# this over the FP32 peak is the floor of its all-pairs design.
+OPS_PER_MISSED_PAIR = 12
 ROW_BYTES = 512  # a table, meta or node row of 128 floats
 SLOT_BYTES = 64  # a triangle slot of 16 floats (both triangle layouts)
 NODE_BYTES = 40  # a node's box, links, first primitive and count (10 floats)
@@ -488,6 +501,27 @@ def time_ms(fn, reps=25):
     return statistics.median(times)
 
 
+def time_device_ms(fn, reps=25):
+    """ms of one call's device work: reps calls queued behind a spin kernel
+    (torch.cuda._sleep), so that the host's part of each call -- the
+    wrapper's checks, allocations and launch, tens of microseconds -- runs
+    while the card is still busy, timed by CUDA events around the reps and
+    divided by reps.  time_ms, by contrast, times one call from an idle card,
+    host part included, as the main path's host-bound loop pays it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # about 25 ms at 2 GHz: longer than reps enqueues
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def time_once(fn):
     """(ms, result) of one call, by CUDA events: for the plain versions,
     whose brute force over a mesh is too slow to repeat."""
@@ -575,17 +609,25 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, bound, plain_reps=T
     ):
         n = args[0].shape[0]
         ms = timer(lambda: run(table, nc, *args))
+        device_ms = time_device_ms(lambda: run(table, nc, *args))
         if plain_reps:
             plain_ms = timer(lambda: plain(table, nc, *args))
         pairs, table_bytes = bound(args[0], args[1], answer)
         bound_ms, bound_by = bound_record(rows, n, lane_in + extra_in + out_bytes,
                                           pairs, table_bytes, peak_ops)
         recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[timing] {name}, {label}, {n} lanes: {ms:.4f} ms (plain "
+                          bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms)
+        floor = ""
+        if kind == "flat":
+            n_slots = table.tris.shape[0] * 16
+            floor_ms = n * n_slots * OPS_PER_MISSED_PAIR / peak_ops * 1e3
+            floor = (f"; all-pairs floor {floor_ms:.4f} ms ({n} x {n_slots} "
+                     f"pairs x {OPS_PER_MISSED_PAIR} FP32 operations)")
+        log(f"[timing] {name}, {label}, {n} lanes: {ms:.4f} ms, device "
+            f"{device_ms:.4f} ms (plain "
             f"{plain_ms:.3f} ms), bound {bound_ms:.4f} ms by {bound_by} "
             f"({pairs} needed pair tests, {table_bytes} needed table bytes; FP32 "
-            f"peak {peak_ops / 1e12:.2f} T op/s = {peak_txt})")
+            f"peak {peak_ops / 1e12:.2f} T op/s = {peak_txt}){floor}")
     return recs
 
 
@@ -601,17 +643,20 @@ def measure_packet(label, pbvh, args, timer, bound):
     plain_ms, want = time_once(lambda: PK.closest_hit_packet_plain(pbvh, *args))
     err = check_equal(f"packet_closest_hit {label}", got, want)
     ms = timer(lambda: PK.closest_hit_packet(pbvh, *args))
+    device_ms = time_device_ms(lambda: PK.closest_hit_packet(pbvh, *args))
     n = args[0].shape[0]
     pairs, table_bytes = bound(args[0], args[1], torch.minimum(got[0], args[-1]))
     bound_ms, bound_by = bound_record("vtri", n, 24 + 4 + 4 + 12, pairs,
                                       table_bytes, peak_ops)
     hits = int((got[0] < BIG).sum().item())
-    log(f"[timing] packet_closest_hit, {label}, {n} lanes ({hits} hits): {ms:.4f} ms "
+    log(f"[timing] packet_closest_hit, {label}, {n} lanes ({hits} hits): {ms:.4f} ms, "
+        f"device {device_ms:.4f} ms "
         f"(plain {plain_ms:.3f} ms, equal), bound {bound_ms:.4f} ms by {bound_by} "
         f"({pairs} needed pair tests, {table_bytes} needed table bytes; FP32 peak "
         f"{peak_ops / 1e12:.2f} T op/s = {peak_txt})")
     return {"packet_closest_hit": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by)}
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       device_ms=device_ms)}
 
 
 def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
@@ -663,8 +708,11 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
         for r in fam.values():
             r["max_abs_err"] = max(r["max_abs_err"], err)
         recs.update(fam)
+        if kind == "flat":
+            recs[ch_name]["primary_ms"] = t_prim
     err = hold_adversarial_spheres(ps, nc, static.n_entities, device)
-    for name in ("sphere_closest_hit", "sphere_any_hit"):
+    for name in ("sphere_closest_hit", "sphere_any_hit", "flat_sphere_closest_hit",
+                 "flat_sphere_any_hit"):
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
     return recs
 
@@ -739,18 +787,23 @@ def adversarial_sphere_lanes(ps, nc, n, n_entities, device, seed=7):
 
 
 def hold_adversarial_spheres(ps, nc, n_entities, device, n=4096):
-    """3g: K1 and K2 against their plain versions on adversarial_sphere_lanes
-    of the stress-500 table: equal outputs, bit for bit.  Returns the
-    largest absolute difference (0)."""
-    ST = _kernel_modules()[0]
+    """3g: K1, K2 and both forms of K5 against their plain versions on
+    adversarial_sphere_lanes of the stress-500 table: equal outputs, bit for
+    bit.  Returns the largest absolute difference (0)."""
+    ST, _, CS, _ = _kernel_modules()
     ch_args, ah_args, counts = adversarial_sphere_lanes(ps, nc, n, n_entities, device)
+    want_ch = ST.closest_hit_spheres_plain(ps.tris, *ch_args)
+    want_ah = ST.occludes_spheres_plain(ps.tris, *ah_args)
     err = check_equal("sphere_closest_hit adversarial",
-                      ST.closest_hit_spheres(ps, nc, *ch_args),
-                      ST.closest_hit_spheres_plain(ps.tris, *ch_args))
+                      ST.closest_hit_spheres(ps, nc, *ch_args), want_ch)
     occ = ST.occludes_spheres(ps, nc, *ah_args)
-    err = max(err, check_equal("sphere_any_hit adversarial", occ,
-                               ST.occludes_spheres_plain(ps.tris, *ah_args)))
-    log(f"[parity] stress-500: K1/K2 == plain on {n} adversarial lanes ({counts['hits']} "
+    err = max(err, check_equal("sphere_any_hit adversarial", occ, want_ah))
+    err = max(err, check_equal("flat_sphere_closest_hit adversarial",
+                               CS.flat_closest_hit(ps.tris, *ch_args), want_ch),
+              check_equal("flat_sphere_any_hit adversarial",
+                          CS.flat_occludes(ps.tris, *ah_args), want_ah))
+    log(f"[parity] stress-500: K1/K2 and K5 (G = {CS.FLAT_GROUP} threads a lane) == plain on "
+        f"{n} adversarial lanes ({counts['hits']} "
         f"hits, {counts['grazing']} grazing lanes with the discriminant within 1e-4 r^2 "
         f"of 0, {counts['ties']} with an exact tie at the nearest hit, "
         f"{counts['exact_t_init']} with t_init at the exact hit t, {counts['exact_t_max']} "
@@ -1041,7 +1094,8 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
             f"{label} {key[:-3].replace('_', ' ')}", got, k3(*args), args[0], args[1],
             scene.tri_v0, scene.tri_n)
     rec.update({f"primary_{k}": v for k, v in packet["primary"].items()
-                if k in ("ms", "plain_ms", "bound_ms", "bound_by", "k3_ms", "k3_parts")})
+                if k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "k3_ms",
+                         "k3_parts")})
     rec["max_abs_err"] = max(rec["max_abs_err"], *(r["max_abs_err"] for r in packet.values()),
                              hold_adversarial_packet(label, pbvh, bscene, device))
     log(f"[parity] {label}: K6 == plain at {SUBSET} primary and {SUBSET} incoherent "
@@ -1362,8 +1416,27 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
         table, nc, ch_args, ah_args = ch_a[0], ch_a[1], ch_a[2:], ah_a[2:]
     if kind != "tri":
         bound = bound or sphere_leaf_bound(scene.psph)
-    return measure(kind, f"{label} main-path tile", table, nc, ch_args, ah_args,
+    recs = measure(kind, f"{label} main-path tile", table, nc, ch_args, ah_args,
                    timer, plain_reps=kind != "tri", bound=bound)
+    if kind == "flat":  # K1/K2 on the same rays
+        k1 = timer(lambda: ST.closest_hit_spheres(table, nc, *ch_args))
+        k2 = timer(lambda: ST.occludes_spheres(table, nc, *ah_args))
+        k1_dev = time_device_ms(lambda: ST.closest_hit_spheres(table, nc, *ch_args))
+        k2_dev = time_device_ms(lambda: ST.occludes_spheres(table, nc, *ah_args))
+        check_equal("sphere_closest_hit on the flat tile",
+                    ST.closest_hit_spheres(table, nc, *ch_args),
+                    CS.flat_closest_hit(ch_a[0], *ch_args))
+        check_equal("sphere_any_hit on the flat tile",
+                    ST.occludes_spheres(table, nc, *ah_args), CS.flat_occludes(ch_a[0], *ah_args))
+        ch_rec, ah_rec = recs["flat_sphere_closest_hit"], recs["flat_sphere_any_hit"]
+        ch_rec.update(k1_ms=k1, k1_device_ms=k1_dev)
+        ah_rec.update(k2_ms=k2, k2_device_ms=k2_dev)
+        log(f"[timing] {label} main-path tile, the same rays (ms, device ms): "
+            f"sphere_closest_hit (K1) {k1:.4f}, {k1_dev:.4f} against K5's "
+            f"{ch_rec['ms']:.4f}, {ch_rec['device_ms']:.4f}; sphere_any_hit (K2) "
+            f"{k2:.4f}, {k2_dev:.4f} against K5's {ah_rec['ms']:.4f}, "
+            f"{ah_rec['device_ms']:.4f}")
+    return recs
 
 
 def gpu_vs_cpu(device, route="walk"):
@@ -1497,20 +1570,26 @@ def main() -> int:
     # doom_*/dragon_* at the 65,536-lane subsets (triangles; their frame_ms
     # at the full incoherent frame; K6's at the incoherent subset, with
     # primary_* at the primary subset and k3_* for K3 on the same rays).
+    # ms is one wrapper call from an idle card, host part included (time_ms);
+    # device_ms the card's own time for the same call (time_device_ms).
     recs = []
     for name in KERNELS:
         at = tile.get(name) or (mesh["doom"] if name.startswith("scan_tri")
                                 else frame)[name]
+        base = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
         r = dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
-                 **{k: at[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by")}, library_ms=None)
+                 **{k: at[k] for k in base}, library_ms=None)
+        if name in tile:
+            r.update({f"tile_{k}": v for k, v in tile[name].items() if k not in base})
         if name in frame:
             r["max_abs_err"] = max(r["max_abs_err"], frame[name]["max_abs_err"])
-            r.update(frame_ms=frame[name]["ms"], frame_plain_ms=frame[name]["plain_ms"],
+            r.update(frame_ms=frame[name]["ms"], frame_device_ms=frame[name]["device_ms"],
+                     frame_plain_ms=frame[name]["plain_ms"],
                      frame_bound_ms=frame[name]["bound_ms"])
+            r.update({f"frame_{k}": v for k, v in frame[name].items() if k not in base})
         if name in dragon_tile:
             r.update({f"dragon_tile_{k}": dragon_tile[name][k]
-                      for k in ("ms", "plain_ms", "bound_ms")})
+                      for k in ("ms", "device_ms", "plain_ms", "bound_ms")})
         for m, rec in mesh.items():
             if name in rec:
                 r["max_abs_err"] = max(r["max_abs_err"], rec[name]["max_abs_err"])

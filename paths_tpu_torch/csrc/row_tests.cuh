@@ -74,23 +74,36 @@ __device__ __forceinline__ bool crosses_box(const float* __restrict__ m,
 // Returns whether the sphere is met ahead (disc >= 0 && d1 >= 0) and sets t.
 // An empty slot (r^2 = -1, gid = -1) fails the caller's gid >= 0 test.
 // SkipMiss returns false as soon as disc < 0, before the square root, and
-// leaves t unset: the same outcome, since such a slot never qualifies.
-template <bool SkipMiss = false>
-__device__ __forceinline__ bool sphere_slot(float cx, float cy, float cz,
-                                            float r2, const float o[3],
-                                            const float d[3], float& t) {
+// leaves t unset: the same outcome, since such a slot never qualifies.  The
+// two halves, sphere_disc and sphere_root, are for a caller that tests
+// several slots' discriminants before it takes any root (K5).
+__device__ __forceinline__ float sphere_disc(float cx, float cy, float cz,
+                                             float r2, const float o[3],
+                                             const float d[3], float& b) {
   const float ocx = o[0] - cx;
   const float ocy = o[1] - cy;
   const float ocz = o[2] - cz;
-  const float b = fmaf(d[2], ocz, fmaf(d[0], ocx, d[1] * ocy));
+  b = fmaf(d[2], ocz, fmaf(d[0], ocx, d[1] * ocy));
   const float c2 = fmaf(ocz, ocz, fmaf(ocx, ocx, ocy * ocy)) - r2;
-  const float disc = fmaf(b, b, -c2);
-  if (SkipMiss && disc < 0.0f) return false;
+  return fmaf(b, b, -c2);
+}
+
+__device__ __forceinline__ bool sphere_root(float b, float disc, float& t) {
   const float root = sqrtf(fmaxf(disc, 0.0f));
   const float d1 = -b + root;
   const float d2 = -b - root;
   t = d2 > 0.0f ? d2 : d1;
   return disc >= 0.0f && d1 >= 0.0f;
+}
+
+template <bool SkipMiss = false>
+__device__ __forceinline__ bool sphere_slot(float cx, float cy, float cz,
+                                            float r2, const float o[3],
+                                            const float d[3], float& t) {
+  float b;
+  const float disc = sphere_disc(cx, cy, cz, r2, o, d, b);
+  if (SkipMiss && disc < 0.0f) return false;
+  return sphere_root(b, disc, t);
 }
 
 // The reference's contracted three-term dot product.

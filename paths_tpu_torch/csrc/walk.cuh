@@ -1,6 +1,6 @@
 // The front-to-back stack walk of a box hierarchy, shared by the port's walk
-// kernels: K1 (csrc/sphere_traverse.cu, over the sphere table's slot
-// ranges), K3 and K4 (csrc/tri_traverse.cu, over the triangle table's
+// kernels: K1 and K2 (csrc/sphere_traverse.cu, over the sphere table's
+// slot ranges), K3 and K4 (csrc/tri_traverse.cu, over the triangle table's
 // rows) and K6 (csrc/packet_bvh.cu, over the BVH table's leaf rows).  Each
 // kernel gives it a leaf test; the walk, the box rule, the stack and the
 // tie rule are written once, here.
@@ -8,7 +8,7 @@
 // Nodes, two float4 per node, in preorder with the root at 0: [lo.xyz ref |
 // hi.xyz aux].  An inner node has ref = its left child and aux = its right
 // child; a leaf has ref < 0, and the leaf test reads ref and aux its own
-// way (K1: first slot -1 - ref and slot count aux; K3/K4: row -1 - ref and
+// way (K1/K2: first slot -1 - ref and slot count aux; K3/K4: row -1 - ref and
 // its chunk aux; K6: leaf row -1 - ref and triangle count aux).  A leaf's
 // box is its primitives' f32 box padded by row_tests.cuh's kBoxPad rule, an
 // inner node's the union of its children's, so f32 rounding of a box can

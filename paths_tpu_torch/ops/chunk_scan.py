@@ -43,8 +43,14 @@ from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 
 # Largest sphere table (rows) the flat kernel takes: 64 rows = 1,024 slots,
-# 32 KB staged in shared memory (the reference's SPH_FLAT_MAX_ROWS).
+# 24 KB staged in shared memory (the reference's SPH_FLAT_MAX_ROWS).
 SPH_FLAT_MAX_ROWS = 64
+# The flat kernel's threads per lane (csrc/flat_spheres.cu kGroup: thread j
+# of a lane's group tests slots j, j + G, ...) and the slots a thread tests
+# in one batch (one branch for their roots; the any-hit form votes after
+# each batch).
+FLAT_GROUP = 8
+FLAT_BATCH = 8
 # Rows per chunk of the linear scan's tables (the reference packers'
 # defaults): 32 triangle rows (256 slots), 16 sphere rows (256 slots).
 TRI_ROWS_PER_CHUNK = 32
@@ -192,13 +198,17 @@ def occludes_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
 
 def _check_flat(table, o, d, excl_idx, lane_args):
     """The flat kernel's launch checks (device, dtype, shape, contiguity, at
-    most SPH_FLAT_MAX_ROWS table rows).  Returns the table's row count."""
+    most SPH_FLAT_MAX_ROWS table rows, the table 16-byte aligned).  Returns
+    the table's row count."""
     dev, n = o.device, o.shape[0]
     rows = table.shape[0] if table.dim() == 2 else -1
     ST._check("table", table, torch.float32, (rows, 128), dev)
     if not 0 < rows <= SPH_FLAT_MAX_ROWS:
         raise ValueError(f"the flat kernel takes 1 to {SPH_FLAT_MAX_ROWS} "
                          f"table rows, not {rows}")
+    if table.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned (the kernel reads "
+                         "slots as float4)")
     ST._check("o", o, torch.float32, (n, 3), dev)
     ST._check("d", d, torch.float32, (n, 3), dev)
     ST._check("excl_idx", excl_idx, torch.int32, (n,), dev)
@@ -212,7 +222,7 @@ def _check_flat(table, o, d, excl_idx, lane_args):
 def flat_closest_hit(table, o, d, excl_idx, t_init):
     """K5, closest-hit form: every slot of the sphere table (R, 128) f32,
     R <= 64, against every lane: (t, gid, ent), t == BIG (gid = ent = 0)
-    where nothing beats t_init."""
+    where nothing beats t_init, the first slot among the nearest."""
     if o.device.type == "cpu":
         return ST.closest_hit_spheres_plain(table, o, d, excl_idx, t_init)
     _check_cuda(o)

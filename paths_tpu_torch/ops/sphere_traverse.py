@@ -15,12 +15,12 @@ kernel walks a tree over the morton-ordered slots (``PackedSpheres.nodes``,
 built on every device; ``_slot_tree``) front to back per lane with the
 shared walk of ``csrc/walk.cuh``, pruning against its running best, with a
 (t, slot index) tie rule, so its answer equals the plain version's
-first-index argmin.  The any-hit kernel walks the chunks in id order with a
-per-lane slab test and returns at the first occluder.  The arithmetic is
-IEEE with exactly three fused multiply-adds -- where XLA's CPU compilation
-of the reference kernel contracts (see ``_row_test``) -- so the plain
-versions, the kernels and the reference in interpret mode agree bit for
-bit.
+first-index argmin.  The any-hit kernel walks the same tree with the same
+walk, pruning against t_max, and returns at the first occluder.  The
+arithmetic is IEEE with exactly three fused multiply-adds -- where XLA's
+CPU compilation of the reference kernel contracts (see ``_row_test``) --
+so the plain versions, the kernels and the reference in interpret mode
+agree bit for bit.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises -- it never falls back.  Each
@@ -48,7 +48,7 @@ SPH_PER_ROW = 128 // SPH_STRIDE  # 16
 SPH_ROWS_PER_CHUNK = 2
 BIG = 3.4e38
 DEAD = 1e29  # a lane whose origin x is past this is dead (a miss)
-# The closest-hit kernel's tree over the slots (PackedSpheres.nodes): at
+# The walk kernels' tree over the slots (PackedSpheres.nodes): at
 # most SPH_LEAF slots a leaf, a range split at its highest differing morton
 # bit (scripts/sphere_hierarchy_shapes.py: the fewest box and slot tests
 # per lane on stress-500, and the fastest K1 on an H100), floats per node
@@ -73,11 +73,10 @@ def reset_launch_counts() -> None:
 class PackedSpheres(NamedTuple):
     tris: torch.Tensor  # (R, 128) f32 rows of 16 sphere slots
     chunk_meta: torch.Tensor  # (Cpad, 128) f32: [lo.xyz, hi.xyz, row0, nrows]
-    # (M, NODE_FLOATS) f32, the closest-hit kernel's tree over the slots
+    # (M, NODE_FLOATS) f32, the walk kernels' tree over the slots
     # (_slot_tree); the reference has none.  None only for a table rebuilt
     # from the reference's arrays (scene/types.py::scene_from_numpy): the
-    # plain versions do not read it, the closest-hit kernel refuses a table
-    # without it.
+    # plain versions do not read it, the kernels refuse a table without it.
     nodes: Optional[torch.Tensor] = None
 
 
@@ -99,7 +98,7 @@ def _split_at(codes, a: int, b: int, split: str) -> int:
 
 
 def _slot_tree(lo, hi, codes, leaf: int = SPH_LEAF, split: str = SPH_SPLIT):
-    """The closest-hit kernel's tree over the table's slots (csrc/walk.cuh):
+    """The walk kernels' tree over the table's slots (csrc/walk.cuh):
     a binary tree over contiguous ranges of the morton-ordered slots, in
     preorder (root 0), as (M, NODE_FLOATS) f32 rows [lo.xyz ref | hi.xyz
     aux].  A range of at most `leaf` slots is a leaf, ref = -1 - its first
@@ -164,7 +163,7 @@ def pack_spheres_chunked(centers, radii, ent=None, gid0: int = 0,
     Spheres are morton-sorted so chunk AABBs stay tight; the gid written is
     gid0 + position in the sorted order.  Returns (PackedSpheres, n_chunks,
     order).  Rows and meta are bit-exact with the reference package's
-    packer; the port adds the closest-hit kernel's tree over the slots
+    packer; the port adds the walk kernels' tree over the slots
     (_slot_tree)."""
     S = len(radii)
     c = np.asarray(centers, np.float64)
@@ -320,7 +319,7 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sphere_closest_hit.argtypes = [p, p, p, p, p, p, i, p, p, p, p]
         lib.sphere_closest_hit.restype = i
-        lib.sphere_any_hit.argtypes = [p, p, i, p, p, p, p, p, i, p, p]
+        lib.sphere_any_hit.argtypes = [p, p, p, p, p, p, p, i, p, p]
         lib.sphere_any_hit.restype = i
         _lib = lib
     return _lib
@@ -356,7 +355,7 @@ def _check_launch(ps: PackedSpheres, n_chunks, o, d, excl_idx, lane_args):
 
 
 def _check_nodes(ps: PackedSpheres, device):
-    """What the closest-hit walk reads besides the table: the tree,
+    """What the walks read besides the table: the tree,
     (M, NODE_FLOATS) f32 rows with a root on the lanes' device, contiguous,
     and the table and tree 16-byte aligned (read as float4)."""
     if ps.nodes is None:
@@ -410,7 +409,9 @@ def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
 def occludes_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
                      excl_ent, t_max):
     """Any-hit occlusion per lane (bool): some sphere other than excl_idx,
-    of an entity other than excl_ent, is hit at t < t_max."""
+    of an entity other than excl_ent, is hit at t < t_max (a lane seeded
+    with t_max == 0 reports occluded).  The kernel walks ps.nodes (n_chunks
+    is checked, not read)."""
     if o.device.type == "cpu":
         return occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent, t_max)
     if o.device.type != "cuda":
@@ -418,13 +419,14 @@ def occludes_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
     _check_launch(ps, n_chunks, o, d, excl_idx,
                   [("excl_ent", excl_ent, torch.int32),
                    ("t_max", t_max, torch.float32)])
+    _check_nodes(ps, o.device)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if n == 0:
         return occ
     lib = build_kernels()
     err = lib.sphere_any_hit(
-        ps.tris.data_ptr(), ps.chunk_meta.data_ptr(), n_chunks,
+        ps.tris.data_ptr(), ps.nodes.data_ptr(),
         o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), excl_ent.data_ptr(),
         t_max.data_ptr(), n, occ.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,

@@ -6,17 +6,21 @@ compare two checkouts on one card.
 
 Imports paths_tpu_torch from DIR (default: this checkout), builds
 stress-500 and, on the kernel route and on the BVH route, doom_standin and
-dragon_standin, and times each walk kernel (CUDA events, median of 25
-launches after a warm-up) on the rays of chip_smoke.py (its primary_rays
-and incoherent_rays, same seeds): K1 on stress-500's primary and
-incoherent 720x480 frames, K2 on the incoherent frame; K3 and K4 on each
-mesh's incoherent frame and on its 65,536-lane subset (every tenth-or-so
-primary ray and the first 32,768 incoherent rays); K6 on each mesh's
-primary and incoherent frames.  Prints one JSON line: the card's name and
-power limit, the label, each cell's time, and a digest of each kernel's
-outputs (equal digests: the same function).  Run it for each checkout in
-turns on one card (parent, change, change, parent) to compare two
-versions.  Needs one CUDA device.
+dragon_standin, and times each walk kernel and the flat sphere kernel on
+the rays of chip_smoke.py (its primary_rays and incoherent_rays, same
+seeds), in two ways: the median of 25 calls, each from an idle card, the
+host's part of the call included (chip_smoke.time_ms), and the device time
+of 25 calls queued behind a spin kernel (chip_smoke.time_device_ms).  The
+cells: K1 and K5's closest-hit form on stress-500's primary and incoherent
+720x480 frames, K2 and K5's any-hit form on the incoherent frame, and all
+four on the frame's first 65,536 incoherent lanes (a main-path tile's
+size); K3 and K4 on each mesh's incoherent frame and on its 65,536-lane
+subset (every tenth-or-so primary ray and the first 32,768 incoherent
+rays); K6 on each mesh's primary and incoherent frames.  Prints one JSON
+line: the card's name and power limit, the label, each cell's two times,
+and a digest of each kernel's outputs (equal digests: the same function).
+Run it for each checkout in turns on one card (parent, change, change,
+parent) to compare two versions.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ import argparse
 import hashlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 
@@ -48,6 +51,7 @@ def main() -> int:
         return 1
     sys.path.insert(1, HERE)
     import chip_smoke as CSM
+    from paths_tpu_torch.ops import chunk_scan as CS
     from paths_tpu_torch.ops import packet_traverse as PK
     from paths_tpu_torch.ops import sphere_traverse as ST
     from paths_tpu_torch.ops import tri_traverse as TT
@@ -56,7 +60,7 @@ def main() -> int:
     from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
     dev = torch.device("cuda")
-    times, digests = {}, {}
+    times, device_ms, digests = {}, {}, {}
 
     def cell(name, fn):
         out = fn()
@@ -65,17 +69,8 @@ def main() -> int:
         for x in out:
             h.update(x.cpu().numpy().tobytes())
         digests[name] = h.hexdigest()[:16]
-        fn()
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(25):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ms.append(a.elapsed_time(b))
-        times[name] = statistics.median(ms)
+        times[name] = CSM.time_ms(fn)
+        device_ms[name] = CSM.time_device_ms(fn)
 
     n = w * h
     static, scene, cam = build_scene(generate_stress_scene(500), device=dev)
@@ -90,6 +85,17 @@ def main() -> int:
     cell("K1 incoherent frame", lambda: ST.closest_hit_spheres(ps, nc, o, d, excl, t_init))
     cell("K2 incoherent frame",
          lambda: ST.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max))
+    cell("K5 primary frame", lambda: CS.flat_closest_hit(ps.tris, po, pd, p_excl, p_t))
+    cell("K5 incoherent frame", lambda: CS.flat_closest_hit(ps.tris, o, d, excl, t_init))
+    cell("K5 any incoherent frame",
+         lambda: CS.flat_occludes(ps.tris, o, d, excl, excl_ent, t_max))
+    m = min(CSM.SUBSET, n)
+    tile = [x[:m].contiguous() for x in (o, d, excl, t_init, excl_ent, t_max)]
+    ch, ah = tile[:4], tile[:3] + tile[4:]
+    cell("K1 tile-size subset", lambda: ST.closest_hit_spheres(ps, nc, *ch))
+    cell("K2 tile-size subset", lambda: ST.occludes_spheres(ps, nc, *ah))
+    cell("K5 tile-size subset", lambda: CS.flat_closest_hit(ps.tris, *ch))
+    cell("K5 any tile-size subset", lambda: CS.flat_occludes(ps.tris, *ah))
 
     for label, path in (("doom", CSM.DOOM), ("dragon", CSM.DRAGON)):
         sd = load_scene_description(path)
@@ -120,7 +126,8 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"label": args.label, "card": smi, "ms": times, "digest": digests}))
+    print(json.dumps({"label": args.label, "card": smi, "ms": times, "device_ms": device_ms,
+                      "digest": digests}))
     return 0
 
 

@@ -29,6 +29,7 @@ from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene.build import build_scene
 from paths_tpu_torch.scene.stress import generate_stress_scene
+from tri_walk_cases import sphere_ties_case
 
 torch.set_num_threads(2)
 
@@ -276,6 +277,101 @@ def test_flat_spheres_equals_walk(stress_table):
                        ST.occludes_spheres(ps, nc, o_, d_, ex_, ee_, tm_))
 
 
+# K5's design (csrc/flat_spheres.cu): G threads share a lane (the kernel's
+# G is FLAT_GROUP; the rule is held here at G = 1, 2, 4 as well), thread j
+# tests slots j, j + G, ... of the table padded with empty slots to whole
+# batches of FLAT_BATCH a thread, in ascending order, keeping its best by
+# strict t < t_best, and the group takes the least (t, slot index) by an
+# xor butterfly of shuffles; the any-hit form votes after every batch and
+# stops at the first vote that finds an occluder.  Emulated here in numpy,
+# in f32, from the plain version's per-slot row test.
+
+def _flat_split(table, o, d, excl, seed, group, excl_ent=None):
+    """K5 on these lanes with `group` threads a lane, emulated.  Returns the
+    closest-hit (t, gid, ent) and the number of (lane, shuffle step) pairs
+    whose two threads held hits at the same t at different slots, or, with
+    excl_ent, the occluded flags and the number of lanes whose group
+    stopped before its last vote."""
+    fields = ST._slot_fields(table)
+    ok, t = ST._row_test(fields, o, d, excl, torch.full_like(seed, float("inf")))
+    ok, t, seed = ok.numpy(), t.numpy(), seed.numpy()
+    gid, ent = fields[4].numpy(), fields[5].numpy()
+    pad = -ok.shape[1] % (group * CS.FLAT_BATCH)  # empty slots: never qualify
+    ok = np.pad(ok, ((0, 0), (0, pad)))
+    t = np.pad(t, ((0, 0), (0, pad)), constant_values=np.inf)
+    ent = np.pad(ent, (0, pad), constant_values=-1)
+    per = ok.shape[1] // group
+    j = np.arange(group)[:, None]
+    if excl_ent is not None:
+        ok &= (t < seed[:, None]) & (ent[None] != excl_ent.numpy()[:, None])
+        found = np.zeros(len(seed), bool)
+        early = np.zeros(len(seed), bool)
+        for i in range(0, per, CS.FLAT_BATCH):
+            ks = (j + group * np.arange(i, i + CS.FLAT_BATCH)).ravel()
+            vote = ok[:, ks].any(1) & ~found  # the group's vote, while it runs
+            early |= vote & (i + CS.FLAT_BATCH < per)
+            found |= vote
+        return torch.from_numpy(found | (seed == 0)), int(early.sum())
+    best_t = np.repeat(seed[None], group, 0)  # (thread, lane)
+    best_pos = np.full(best_t.shape, -1)
+    for i in range(per):
+        k = (j + group * i)[:, 0]
+        take = ok[:, k].T & (t[:, k].T < best_t)
+        best_t = np.where(take, t[:, k].T, best_t)
+        best_pos = np.where(take, k[:, None], best_pos)
+    cross_ties, off = 0, group // 2
+    while off:
+        t_o, p_o = best_t[j[:, 0] ^ off], best_pos[j[:, 0] ^ off]
+        cross_ties += int(((t_o == best_t) & (p_o >= 0) & (best_pos >= 0)
+                           & (p_o != best_pos)).sum()) // 2
+        take = (t_o < best_t) | ((t_o == best_t) & (p_o < best_pos))
+        best_t, best_pos = np.where(take, t_o, best_t), np.where(take, p_o, best_pos)
+        off //= 2
+    assert (best_t == best_t[0]).all() and (best_pos == best_pos[0]).all()
+    hit = best_pos[0] >= 0
+    out = (np.where(best_t[0] < seed, best_t[0], np.float32(BIG)).astype(np.float32),
+           np.where(hit, gid[best_pos[0]], 0).astype(np.int32),
+           np.where(hit, ent[best_pos[0]], 0).astype(np.int32))
+    return tuple(torch.from_numpy(a) for a in out), cross_ties
+
+
+def _pole_pairs():
+    """The pole-pair spheres (exact ties between slots) packed as the scene
+    build packs them, and their lanes."""
+    (c, r, ent), lanes = sphere_ties_case()
+    ps, _, _ = ST.pack_spheres_chunked(c, r, ent=ent)
+    return ps.tris, lanes
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, CS.FLAT_GROUP])
+@pytest.mark.parametrize("case", ["stress500", "pole_pairs"])
+@pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "any"])
+def test_flat_split_emulation_equals_plain(stress_table, case, group, anyhit):
+    """K5's slot split and group reduction, emulated, equal the plain
+    versions bit for bit at each group size, on the stress-500 lanes and
+    on the pole pairs with t_init at the exact nearest hit on every third
+    lane.  On the pole pairs (group > 1) some shuffle step must have met a
+    tie between two threads, decided by slot index; the any-hit groups
+    must stop early."""
+    table, lanes = stress_table if case == "stress500" else _pole_pairs()
+    o, d, excl, t_init, excl_ent, t_max = (torch.from_numpy(np.array(a)) for a in lanes)
+    if anyhit:
+        got, early = _flat_split(table, o, d, excl, t_max, group, excl_ent)
+        want = ST.occludes_spheres_plain(table, o, d, excl, excl_ent, t_max)
+        assert torch.equal(got, want)
+        assert int(want.sum()) > len(o) // 10 and early > 0
+        return
+    first = ST.closest_hit_spheres_plain(table, o, d, excl, torch.full_like(t_init, BIG))[0]
+    lane = torch.arange(len(o))
+    t_init = torch.where((lane % 3 == 0) & (first < BIG), first, t_init)
+    got, cross_ties = _flat_split(table, o, d, excl, t_init, group)
+    for g, w in zip(got, ST.closest_hit_spheres_plain(table, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    assert int((got[0] < BIG).sum()) > len(o) // 8
+    if case == "pole_pairs" and group > 1:
+        assert cross_ties > 10
+
+
 def test_launch_checks_reject_bad_inputs(spheres, stress_table):
     """The checks a CUDA launch runs first: device, dtype, shape,
     contiguity, the chunk count, the table's alignment (chunk scan) and row
@@ -298,6 +394,8 @@ def test_launch_checks_reject_bad_inputs(spheres, stress_table):
     CS._check_flat(table, o, d, excl, ent + seed)
     with pytest.raises(ValueError, match="rows"):
         CS._check_flat(torch.zeros(72, 128), o, d, excl, seed)
+    with pytest.raises(ValueError, match="aligned"):
+        CS._check_flat(torch.zeros(table.numel() + 1)[1:].view(-1, 128), o, d, excl, seed)
     with pytest.raises(TypeError):
         CS._check_flat(table.double(), o, d, excl, seed)
     with pytest.raises(ValueError):

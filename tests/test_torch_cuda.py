@@ -101,6 +101,74 @@ def test_closest_hit_wrapper_refuses_a_table_without_tree(dev):
         ST.closest_hit_spheres(ps._replace(nodes=ps.nodes.cpu()), nc, o, d, excl, t_init)
 
 
+def _sphere_case(dev, case, seed=6):
+    """(PackedSpheres, n_chunks, (o, d, excl, excl_ent, t_max)) of one K2
+    case: stress-500's table with incoherent rays from inside its box, or
+    the pole pairs (exact ties); t_max at the exact nearest occluder on
+    every fifth lane (not occluded), 0 on every seventh (occluded), dead
+    lanes in both."""
+    if case == "stress500":
+        from paths_tpu_torch.scene.stress import generate_stress_scene
+
+        sd = generate_stress_scene(500)
+        c = np.array([ob.sphere.center.tolist() for ob in sd.objects])
+        r = np.array([ob.sphere.radius for ob in sd.objects])
+        ent = np.arange(len(r)) % 7
+        rng = np.random.default_rng(seed)
+        o = rng.uniform([-50, -50, 0], [50, 50, 100], (N, 3))
+        d = rng.normal(size=(N, 3))
+        d[: N // 2] = c[rng.integers(0, len(r), N // 2)] - o[: N // 2]
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o[::23] = 1e30
+        excl = np.where(rng.uniform(size=N) < 0.2, rng.integers(0, len(r), N), -1)
+        excl_ent = rng.integers(-1, 7, N)
+        t_max = np.where(rng.uniform(size=N) < 0.5, 3.4e38, rng.uniform(0, 150, N))
+        lanes = (o, d, excl, excl_ent, t_max)
+    else:
+        (c, r, ent), (o, d, excl, _, excl_ent, t_max) = sphere_ties_case()
+        lanes = (o, d, excl, excl_ent, t_max)
+    ps, nc, _ = ST.pack_spheres_chunked(c, r, ent=ent, device=dev)
+    o, d, excl, excl_ent, t_max = (
+        torch.as_tensor(np.asarray(a, dt), device=dev)
+        for a, dt in zip(lanes, (np.float32, np.float32, np.int32, np.int32, np.float32)))
+    fields = ST._slot_fields(ps.tris)
+    met, t = ST._row_test(fields, o, d, excl, torch.full_like(t_max, float("inf")))
+    met &= fields[5] != excl_ent[:, None]
+    near = torch.where(met, t, float("inf")).amin(1)
+    lane = torch.arange(o.shape[0], device=dev)
+    zero = lane % 7 == 3
+    t_max = torch.where((lane % 5 == 1) & (near < float("inf")) & ~zero, near, t_max)
+    t_max = torch.where(zero, 0.0, t_max).contiguous()
+    return ps, nc, (o, d, excl, excl_ent, t_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stress500", "pole_pairs"])
+def test_any_hit_kernel_holds_edge_lanes(dev, case):
+    """K2's walk on stress-500 and on the pole pairs, with t_max at the
+    exact nearest occluder, t_max == 0 and dead lanes: equal to the plain
+    version bit for bit."""
+    ps, nc, (o, d, excl, excl_ent, t_max) = _sphere_case(dev, case)
+    before = ST.LAUNCHES["sphere_any_hit"]
+    got = ST.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
+    torch.cuda.synchronize()
+    assert ST.LAUNCHES["sphere_any_hit"] == before + 1
+    assert torch.equal(got, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
+    dead = o[:, 0] > 1e29
+    assert got[t_max == 0].all() and not got[dead & (t_max > 0)].any()
+    assert int(got.sum()) > o.shape[0] // 8
+
+
+@pytest.mark.cuda
+def test_any_hit_wrapper_refuses_a_table_without_tree(dev):
+    ps, nc, (o, d, excl, _, excl_ent, t_max) = _scene_and_rays(dev)
+    with pytest.raises(ValueError, match="tree"):
+        ST.occludes_spheres(ps._replace(nodes=None), nc, o, d, excl, excl_ent, t_max)
+    with pytest.raises(ValueError):
+        ST.occludes_spheres(ps._replace(nodes=ps.nodes.cpu()), nc, o, d, excl, excl_ent,
+                            t_max)
+
+
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(dev):
     ps, nc, (o, d, excl, t_init, _, _) = _scene_and_rays(dev)
@@ -235,6 +303,39 @@ def test_flat_kernel_matches_plain(dev, anyhit):
         got, want = (got,), (want,)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 65537])
+def test_flat_kernel_at_ragged_lane_counts(dev, n):
+    """K5, both forms, at lane counts that are not a multiple of the group
+    or of the block: equal to the plain versions bit for bit."""
+    ps, _, lanes = _sphere_case(dev, "stress500")
+    reps = -(-n // N)
+    o, d, excl, excl_ent, t_max = (torch.cat([x] * reps)[:n].contiguous() for x in lanes)
+    t_init = torch.where(t_max == 0, 3.4e38, t_max).contiguous()
+    got = CS.flat_closest_hit(ps.tris, o, d, excl, t_init)
+    for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    occ = CS.flat_occludes(ps.tris, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
+
+
+@pytest.mark.cuda
+def test_flat_kernel_holds_exact_ties(dev):
+    """K5 on the pole pairs (exact t ties between slots, so between the
+    threads of a group), with t_init at the exact nearest hit on a third of
+    the lanes: equal to the plain versions bit for bit."""
+    ps, _, (o, d, excl, excl_ent, t_max) = _sphere_case(dev, "pole_pairs")
+    first = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, torch.full_like(t_max, 3.4e38))[0]
+    lane = torch.arange(o.shape[0], device=dev)
+    t_init = torch.where((lane % 3 == 0) & (first < 3.4e38), first, 3.4e38).contiguous()
+    got = CS.flat_closest_hit(ps.tris, o, d, excl, t_init)
+    for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    occ = CS.flat_occludes(ps.tris, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
+    assert int((got[0] < 3.4e38).sum()) > o.shape[0] // 4
 
 
 @pytest.mark.cuda

@@ -137,7 +137,8 @@ def test_launch_checks_reject_bad_inputs(packed):
 # ---------------------------------------------------------------- the tree
 
 # The closest-hit kernel (K1) walks a tree over the morton-ordered slots
-# (PackedSpheres.nodes) front to back through csrc/walk.cuh; the tests below
+# (PackedSpheres.nodes) front to back through csrc/walk.cuh, and the any-hit
+# kernel (K2) walks it to its first occluder; the tests below
 # hold the tree's boxes and shape, and the Python emulation of that walk
 # (tests/tri_walk_cases.py::walk, the same stack, pruning and tie rule, in
 # f32) against the plain version, bit for bit: on the 40 spheres above, on
@@ -295,6 +296,57 @@ def test_walk_emulation_equals_plain(which):
     assert int(exact.sum()) > 0 and not (want[0][exact] < BIG).any()
     if which == "pole_pairs":
         assert ties > 10
+
+
+def _any_hit_seeds(which, ps, o, d, excl, rng):
+    """excl_ent and t_max for a case's lanes: random entities, t_max random
+    (half BIG), every fifth lane's t_max at its exact nearest occluder (not
+    occluded: the test is strict), every seventh 0 (occluded)."""
+    fields = ST._slot_fields(ps.tris)
+    n_ent = int(fields[5].max()) + 1
+    if which == "pole_pairs":
+        excl_ent, t_max = (torch.from_numpy(a) for a in sphere_ties_case()[1][4:])
+    else:
+        scale = {"spheres40": 8.0, "stress500": 150.0}[which]
+        excl_ent = torch.from_numpy(rng.integers(-1, n_ent, len(o)).astype(np.int32))
+        t_max = torch.from_numpy(np.where(rng.uniform(size=len(o)) < 0.5, BIG,
+                                          rng.uniform(0, scale, len(o))).astype(np.float32))
+    met, t = ST._row_test(fields, o, d, excl, torch.full_like(t_max, float("inf")))
+    met &= fields[5] != excl_ent[:, None]
+    near = torch.where(met, t, float("inf")).amin(1)
+    lane = torch.arange(len(o))
+    zero = lane % 7 == 3
+    exact = (lane % 5 == 1) & (near < float("inf")) & ~zero
+    t_max = torch.where(exact, near, torch.where(zero, 0.0, t_max))
+    return excl_ent, t_max, exact
+
+
+@pytest.mark.parametrize("which", TREE_CASES)
+def test_any_hit_walk_emulation_equals_plain(which):
+    """K2's walk, emulated lane by lane (walk() over slot ranges, the any-hit
+    form: pruned against t_max, ended by the first occluder), equals the
+    plain version bit for bit.  Among the lanes: t_max at the lane's exact
+    nearest occluder (not occluded), t_max == 0 (occluded, dead or not) and
+    dead lanes (not occluded unless t_max == 0)."""
+    ps, lanes = _tree_case(which)
+    o, d, excl, _ = (torch.from_numpy(np.array(a)) for a in lanes)
+    excl_ent, t_max, exact = _any_hit_seeds(which, ps, o, d, excl,
+                                            np.random.default_rng(17))
+    want = ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max)
+    fields = ST._slot_fields(ps.tris)
+    met, t = ST._row_test(fields, o, d, excl, torch.full_like(t_max, float("inf")))
+    nodes, met, t, ent = ps.nodes.numpy(), met.numpy(), t.numpy(), fields[5].numpy()
+    for i in range(len(o)):
+        w = walk(nodes, met[i], t[i], o[i].numpy(), d[i].numpy(), t_max[i].item(),
+                 ent=ent, excl_ent=excl_ent[i].item(), leaf=slot_range)
+        assert w.depth <= ST.WALK_STACK
+        assert bool(w.t == 0) == bool(want[i]), i
+    dead = o[:, 0] > 1e29
+    zero = t_max == 0
+    assert int(exact.sum()) > 0 and not want[exact].any()
+    assert want[zero].all() and int((dead & zero).sum()) > 0
+    assert int((dead & ~zero).sum()) > 0 and not want[dead & ~zero].any()
+    assert int(want[~zero].sum()) > len(o) // 10
 
 
 def test_launch_checks_reject_a_bad_tree(packed):
