@@ -6,7 +6,7 @@
 Phases, one line each (any failure exits non-zero before the last line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
-     csrc/flat_spheres.cu, csrc/chunk_scan.cu, csrc/packet_bvh.cu; nvcc with
+     csrc/flat_spheres.cu, csrc/chunk_scan.cu (K8 only), csrc/packet_bvh.cu; nvcc with
      ptxas -v, whose registers, stack frame, spills and shared memory are
      printed per kernel) and the C++ BVH builder (csrc/bvh_builder.cc, g++),
      all started together, timed;
@@ -29,14 +29,16 @@ Phases, one line each (any failure exits non-zero before the last line):
      tree nodes some lane enters, read once, and the lanes' inputs and
      outputs;
   3g. K1/K2 and both forms of K5 held equal to their plain versions on
-     4,096 adversarial lanes of the stress-500 table: rays
+     4,096 adversarial lanes of the stress-500 table, and K9's sphere form
+     on the same lanes over the same spheres packed at 16 rows: rays
      aimed exactly at sphere centres and grazing spheres (the discriminant
      within rounding of 0), t_init and t_max at a lane's exact hit and
      occluder distances, t_max == 0, dead lanes, zero direction components,
      origins on a plane of the tree's boxes;
   3c/4c. the same for K5 (the flat kernels) on the same table and frames,
      and for K8 and K9's sphere form on the stress-500 spheres packed at 16
-     rows per chunk; a bound belongs to the function, so K5's and K8/K9's
+     rows per chunk (K9 walks that table's tree with K2's kernel, K8 scans
+     its chunks); a bound belongs to the function, so K5's and K8/K9's
      are K1/K2's (counted on the leaves of K1's tree over the same rows).
      K5 tests every slot for every lane, so its all-pairs floor (lanes x
      slots x OPS_PER_MISSED_PAIR over the FP32 peak) is printed beside;
@@ -49,9 +51,11 @@ Phases, one line each (any failure exits non-zero before the last line):
      the bound is counted too;
   3d/4d. the same for K7 and K9's triangle form on the doom_standin table
      repacked at 32 rows per chunk (the same BVH and leaves), and K3/K4 on
-     that same table and subset beside them;
+     that same table and subset beside them: K7/K9 launch K3/K4's walks, so
+     the two time the same kernel through two wrappers;
   3f. K3/K4 held equal to their plain versions on 4,096 adversarial lanes
-     of each table (doom at 8 and 32 rows, dragon at 20): rays aimed exactly
+     of each table (doom at 8 and 32 rows, dragon at 20), and K7/K9 on the
+     same lanes of doom at 32 rows: rays aimed exactly
      at vertices and edge midpoints (exact t ties between triangles), t_init
      and t_max at a lane's exact hit and occluder distances, t_max == 0,
      dead lanes, zero direction components, origins on a box plane;
@@ -179,16 +183,16 @@ KERNELS = {
         source="paths_tpu_torch/csrc/flat_spheres.cu"),
     "scan_tri_closest_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:538",
-        source="paths_tpu_torch/csrc/chunk_scan.cu"),
+        source="paths_tpu_torch/csrc/tri_traverse.cu"),
     "scan_sphere_closest_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:995",
         source="paths_tpu_torch/csrc/chunk_scan.cu"),
     "scan_tri_any_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:840",
-        source="paths_tpu_torch/csrc/chunk_scan.cu"),
+        source="paths_tpu_torch/csrc/tri_traverse.cu"),
     "scan_sphere_any_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:854",
-        source="paths_tpu_torch/csrc/chunk_scan.cu"),
+        source="paths_tpu_torch/csrc/sphere_traverse.cu"),
     "packet_closest_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:1094",
         source="paths_tpu_torch/csrc/packet_bvh.cu"),
@@ -710,9 +714,9 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
         recs.update(fam)
         if kind == "flat":
             recs[ch_name]["primary_ms"] = t_prim
-    err = hold_adversarial_spheres(ps, nc, static.n_entities, device)
+    err = hold_adversarial_spheres(ps, nc, ps16, nc16, static.n_entities, device)
     for name in ("sphere_closest_hit", "sphere_any_hit", "flat_sphere_closest_hit",
-                 "flat_sphere_any_hit"):
+                 "flat_sphere_any_hit", "scan_sphere_any_hit"):
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
     return recs
 
@@ -786,10 +790,11 @@ def adversarial_sphere_lanes(ps, nc, n, n_entities, device, seed=7):
     return (o, d, excl, t_init), (o, d, excl, excl_ent, t_max), counts
 
 
-def hold_adversarial_spheres(ps, nc, n_entities, device, n=4096):
+def hold_adversarial_spheres(ps, nc, ps16, nc16, n_entities, device, n=4096):
     """3g: K1, K2 and both forms of K5 against their plain versions on
-    adversarial_sphere_lanes of the stress-500 table: equal outputs, bit for
-    bit.  Returns the largest absolute difference (0)."""
+    adversarial_sphere_lanes of the stress-500 table, and K9's sphere form on
+    the same lanes over ps16 (the same spheres at 16 rows a chunk): equal
+    outputs, bit for bit.  Returns the largest absolute difference (0)."""
     ST, _, CS, _ = _kernel_modules()
     ch_args, ah_args, counts = adversarial_sphere_lanes(ps, nc, n, n_entities, device)
     want_ch = ST.closest_hit_spheres_plain(ps.tris, *ch_args)
@@ -801,8 +806,12 @@ def hold_adversarial_spheres(ps, nc, n_entities, device, n=4096):
     err = max(err, check_equal("flat_sphere_closest_hit adversarial",
                                CS.flat_closest_hit(ps.tris, *ch_args), want_ch),
               check_equal("flat_sphere_any_hit adversarial",
-                          CS.flat_occludes(ps.tris, *ah_args), want_ah))
-    log(f"[parity] stress-500: K1/K2 and K5 (G = {CS.FLAT_GROUP} threads a lane) == plain on "
+                          CS.flat_occludes(ps.tris, *ah_args), want_ah),
+              check_equal("scan_sphere_any_hit adversarial (16-row chunks)",
+                          CS.occludes_spheres(ps16, nc16, *ah_args),
+                          ST.occludes_spheres_plain(ps16.tris, *ah_args)))
+    log(f"[parity] stress-500: K1/K2, K5 (G = {CS.FLAT_GROUP} threads a lane) and K9 "
+        f"(16-row chunks) == plain on "
         f"{n} adversarial lanes ({counts['hits']} "
         f"hits, {counts['grazing']} grazing lanes with the discriminant within 1e-4 r^2 "
         f"of 0, {counts['ties']} with an exact tie at the nearest hit, "
@@ -936,20 +945,26 @@ def hold_adversarial_packet(label, pbvh, scene, device, n=4096):
     return err
 
 
-def hold_adversarial(label, table, n_chunks, scene, n_entities, device, n=4096):
-    """K3 and K4 against their plain versions on adversarial_lanes: equal
-    outputs, bit for bit.  Returns the largest absolute difference (0)."""
+def hold_adversarial(label, kind, table, n_chunks, scene, n_entities, device, n=4096):
+    """K3 and K4 against their plain versions on adversarial_lanes, and with
+    kind "scan_tri" K7 and K9 too: equal outputs, bit for bit.  Returns the
+    largest absolute difference (0)."""
     from paths_tpu_torch.ops import tri_traverse as TT
 
     ch_args, ah_args, counts = adversarial_lanes(scene, table, n_chunks, n, n_entities,
                                                  device)
-    err = check_equal(f"tri_closest_hit {label} adversarial",
-                      TT.closest_hit_tris(table, n_chunks, *ch_args),
-                      TT.closest_hit_tris_plain(table, n_chunks, *ch_args))
-    occ = TT.occludes_tris(table, n_chunks, *ah_args)
-    err = max(err, check_equal(f"tri_any_hit {label} adversarial", occ,
-                               TT.occludes_tris_plain(table, n_chunks, *ah_args)))
-    log(f"[parity] {label}: K3/K4 == plain on {n} adversarial lanes ({counts['hits']} "
+    want_ch = TT.closest_hit_tris_plain(table, n_chunks, *ch_args)
+    want_ah = TT.occludes_tris_plain(table, n_chunks, *ah_args)
+    kinds = ("tri", "scan_tri") if kind == "scan_tri" else ("tri",)
+    err = 0.0
+    for k in kinds:
+        _, (ch_name, ch, _), (ah_name, ah, _) = _families()[k]
+        occ = ah(table, n_chunks, *ah_args)
+        err = max(err, check_equal(f"{ch_name} {label} adversarial",
+                                   ch(table, n_chunks, *ch_args), want_ch),
+                  check_equal(f"{ah_name} {label} adversarial", occ, want_ah))
+    kernels = "K3/K4 and K7/K9" if kind == "scan_tri" else "K3/K4"
+    log(f"[parity] {label}: {kernels} == plain on {n} adversarial lanes ({counts['hits']} "
         f"hits, {counts['ties']} with an exact tie at the nearest hit, "
         f"{counts['exact_t_init']} with t_init at the exact hit t, {counts['exact_t_max']} "
         f"with t_max at the exact occluder t, {counts['zero_component']} with a zero "
@@ -1037,10 +1052,10 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
         for name, r in fam.items():
             r["frame_ms"] = frame[name]
         recs.update(fam)
-        # 3f: K3/K4 on adversarial lanes of this table; on the repacked table
-        # also on the subsets, held to K7/K9, which equal the plain versions
-        # there (one table for both).
-        err = hold_adversarial(f"{label} ({rows}-row chunks)", pt, nc, scene,
+        # 3f: K3/K4 on adversarial lanes of this table (on the repacked table
+        # K7/K9 too); on the repacked table K3/K4 also on the subsets, held to
+        # K7/K9, which equal the plain versions there (one table for both).
+        err = hold_adversarial(f"{label} ({rows}-row chunks)", kind, pt, nc, scene,
                                static.n_entities, device)
         if kind == "scan_tri":
             _, (k3_name, k3, _), (k4_name, k4, _) = _families()["tri"]
@@ -1052,8 +1067,9 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
             log(f"[timing] {label} subset, {SUBSET} lanes, {rows}-row chunks: "
                 f"{k3_name} {recs[k3_name][f'rows{rows}_ms']:.4f} ms, {k4_name} "
                 f"{recs[k4_name][f'rows{rows}_ms']:.4f} ms (equal to K7/K9 and so to "
-                "the plain versions)")
-        for name in ("tri_closest_hit", "tri_any_hit"):
+                "the plain versions; the same kernels as K7/K9, through K3/K4's "
+                "wrappers)")
+        for name in (ch_name, ah_name, "tri_closest_hit", "tri_any_hit"):
             recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
 
     # 3e/4e: K6 on the BVH route's table, K3 on the same rays beside it.

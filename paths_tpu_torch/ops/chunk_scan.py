@@ -1,5 +1,6 @@
-"""The flat sphere kernels (K5) and the linear chunk-scan kernels (K7, K8,
-K9): their CUDA launches and their plain PyTorch versions.
+"""The flat sphere kernels (K5), the linear chunk-scan kernel (K8) and the
+chunked forms K7 and K9, which walk their tables' hierarchies: their CUDA
+launches and their plain PyTorch versions.
 
 Ports the K5, K7, K8 and K9 parts of ``paths_tpu/ops/pallas_traverse.py``
 under the reference's names, used module-qualified:
@@ -21,15 +22,25 @@ against -- flat brute force in the kernels' arithmetic
 (``sphere_traverse.closest_hit_spheres_plain``, ``occludes_spheres_plain``,
 ``tri_traverse.closest_hit_tris_plain``, ``occludes_tris_plain``) -- so those
 are their plain versions here, and the tests hold them against the
-reference's kernels in interpret mode.  The kernels are
-``csrc/flat_spheres.cu`` (K5) and ``csrc/chunk_scan.cu`` (K7-K9; the row
-tests are ``csrc/row_tests.cuh``, shared with K1-K4).
+reference's kernels in interpret mode.  The kernels: ``csrc/flat_spheres.cu``
+(K5) and ``csrc/chunk_scan.cu`` (K8, the reference's linear culled-chunk
+scan).  K7 and K9 launch the walks that compute the same functions on the
+same tables: K7 the closest-hit walk of ``csrc/tri_traverse.cu`` over
+``PackedTris.nodes`` (K3's kernel, with its chunk recentring and its (t,
+table position) tie rule, which is K7's first slot in table order), K9's
+triangle form the any-hit walk of the same file (K4's), K9's sphere form
+the any-hit walk of ``csrc/sphere_traverse.cu`` over ``PackedSpheres.nodes``
+(K2's).  On the card they refuse a table without its hierarchy (one
+rebuilt from the reference's arrays, ``scene/types.py::scene_from_numpy``)
+with a ValueError, where the scans took it.
 
 Dispatch, as for K1-K4: a wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches the kernel or raises -- it never falls back.
-Each wrapper counts its kernel launches in ``LAUNCHES``.  The kernels are
-built with ``nvcc`` at first use into ``build/`` beside the package and
-loaded with ``ctypes``.
+Each wrapper counts its kernel launches in this module's ``LAUNCHES`` and
+nowhere else: a K7 call adds one to ``LAUNCHES["scan_tri_closest_hit"]``
+and none to ``tri_traverse.LAUNCHES``, although it runs K3's kernel.  The
+kernels are built with ``nvcc`` at first use into ``build/`` beside the
+package and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -51,8 +62,8 @@ SPH_FLAT_MAX_ROWS = 64
 # each batch).
 FLAT_GROUP = 8
 FLAT_BATCH = 8
-# Rows per chunk of the linear scan's tables (the reference packers'
-# defaults): 32 triangle rows (256 slots), 16 sphere rows (256 slots).
+# Rows per chunk of K7-K9's tables (the reference packers' defaults): 32
+# triangle rows (256 slots), 16 sphere rows (256 slots).
 TRI_ROWS_PER_CHUNK = 32
 SPH_ROWS_PER_CHUNK = 16
 
@@ -76,18 +87,16 @@ _libs = {}
 
 def build_kernels(verbose: bool = False) -> dict:
     """Build csrc/flat_spheres.cu and csrc/chunk_scan.cu (once per source
-    version) and load them: {"flat": CDLL, "scan": CDLL}."""
+    version) and load them: {"flat": CDLL, "scan": CDLL}.  K7 and K9 build
+    their walks' libraries through tri_traverse and sphere_traverse."""
     if not _libs:
         p, i = ctypes.c_void_p, ctypes.c_int
         flat, scan = (native.load_library(src, native.nvcc(), native.NVCC_FLAGS, verbose)
                       for src in ("flat_spheres.cu", "chunk_scan.cu"))
-        closest = [p, p, i, p, p, p, p, i, p, p, p, p]
-        anyhit = [p, p, i, p, p, p, p, p, i, p, p]
         for fn, argtypes in (
                 (flat.flat_sphere_closest_hit, [p, i, p, p, p, p, i, p, p, p, p]),
                 (flat.flat_sphere_any_hit, [p, i, p, p, p, p, p, i, p, p]),
-                (scan.scan_tri_closest_hit, closest), (scan.scan_sphere_closest_hit, closest),
-                (scan.scan_tri_any_hit, anyhit), (scan.scan_sphere_any_hit, anyhit)):
+                (scan.scan_sphere_closest_hit, [p, p, i, p, p, p, p, i, p, p, p, p])):
             fn.argtypes, fn.restype = argtypes, i
         _libs.update(flat=flat, scan=scan)
     return _libs
@@ -103,7 +112,7 @@ def _check_cuda(o):
 
 
 def _check_table(packed, n_chunks, o, d, excl_idx, lane_args):
-    """K1-K4's launch checks (device, dtype, shape, contiguity, chunk
+    """K8's launch checks: K1-K4's (device, dtype, shape, contiguity, chunk
     count), and the table's 16-byte alignment (the kernel reads slots as
     float4)."""
     ST._check_launch(packed, n_chunks, o, d, excl_idx, lane_args)
@@ -112,52 +121,17 @@ def _check_table(packed, n_chunks, o, d, excl_idx, lane_args):
                          "reads slots as float4)")
 
 
-def _launch_closest(name, packed, n_chunks, o, d, excl_idx, t_init):
-    _check_table(packed, n_chunks, o, d, excl_idx,
-                 [("t_init", t_init, torch.float32)])
-    n = o.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    gid = torch.empty(n, dtype=torch.int32, device=o.device)
-    ent = torch.empty(n, dtype=torch.int32, device=o.device)
-    if n == 0:
-        return t, gid, ent
-    err = getattr(build_kernels()["scan"], name)(
-        packed.tris.data_ptr(), packed.chunk_meta.data_ptr(), n_chunks,
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
-        t.data_ptr(), gid.data_ptr(), ent.data_ptr(), _stream(o))
-    ST._raise_on(err, name)
-    LAUNCHES[name] += 1
-    return t, gid, ent
-
-
-def _launch_any(name, packed, n_chunks, o, d, excl_idx, excl_ent, t_max):
-    _check_table(packed, n_chunks, o, d, excl_idx,
-                 [("excl_ent", excl_ent, torch.int32),
-                  ("t_max", t_max, torch.float32)])
-    n = o.shape[0]
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
-    err = getattr(build_kernels()["scan"], name)(
-        packed.tris.data_ptr(), packed.chunk_meta.data_ptr(), n_chunks,
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), excl_ent.data_ptr(),
-        t_max.data_ptr(), n, occ.data_ptr(), _stream(o))
-    ST._raise_on(err, name)
-    LAUNCHES[name] += 1
-    return occ
-
-
 def closest_hit_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
                         t_init):
-    """K7: closest triangle hit per lane by the linear culled-chunk scan:
-    (t, gid, ent), t == BIG (gid = ent = 0) where nothing beats t_init.
-    o, d (N,3) f32; excl_idx (N,) i32 triangle id to skip (-1 none);
-    t_init (N,) f32."""
+    """K7: closest triangle hit per lane over the chunked table: (t, gid,
+    ent), t == BIG (gid = ent = 0) where nothing beats t_init, the first
+    slot in table order among the nearest.  o, d (N,3) f32; excl_idx (N,)
+    i32 triangle id to skip (-1 none); t_init (N,) f32.  On the card, the
+    closest-hit walk of pt.nodes (n_chunks is checked, not read)."""
     if o.device.type == "cpu":
         return TT.closest_hit_tris_plain(pt, n_chunks, o, d, excl_idx, t_init)
-    _check_cuda(o)
-    return _launch_closest("scan_tri_closest_hit", pt, n_chunks, o, d,
-                           excl_idx, t_init)
+    return TT.walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
+                               "scan_tri_closest_hit")
 
 
 def closest_hit_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
@@ -167,33 +141,45 @@ def closest_hit_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
     if o.device.type == "cpu":
         return ST.closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
     _check_cuda(o)
-    return _launch_closest("scan_sphere_closest_hit", ps, n_chunks, o, d,
-                           excl_idx, t_init)
+    _check_table(ps, n_chunks, o, d, excl_idx, [("t_init", t_init, torch.float32)])
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    gid = torch.empty(n, dtype=torch.int32, device=o.device)
+    ent = torch.empty(n, dtype=torch.int32, device=o.device)
+    if n == 0:
+        return t, gid, ent
+    err = build_kernels()["scan"].scan_sphere_closest_hit(
+        ps.tris.data_ptr(), ps.chunk_meta.data_ptr(), n_chunks,
+        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
+        t.data_ptr(), gid.data_ptr(), ent.data_ptr(), _stream(o))
+    ST._raise_on(err, "scan_sphere_closest_hit")
+    LAUNCHES["scan_sphere_closest_hit"] += 1
+    return t, gid, ent
 
 
 def occludes_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
                      excl_ent, t_max):
     """K9, triangle form: True per lane iff some triangle other than
     excl_idx, of an entity other than excl_ent, is hit at t < t_max (a lane
-    seeded with t_max == 0 reports occluded)."""
+    seeded with t_max == 0 reports occluded).  On the card, the any-hit
+    walk of pt.nodes (n_chunks is checked, not read)."""
     if o.device.type == "cpu":
         return TT.occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent,
                                       t_max)
-    _check_cuda(o)
-    return _launch_any("scan_tri_any_hit", pt, n_chunks, o, d, excl_idx,
-                       excl_ent, t_max)
+    return TT.walk_any_hit(pt, n_chunks, o, d, excl_idx, excl_ent, t_max,
+                           LAUNCHES, "scan_tri_any_hit")
 
 
 def occludes_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
                      excl_ent, t_max):
     """K9, sphere form: any-hit occlusion over the sphere table (see
-    occludes_chunked)."""
+    occludes_chunked).  On the card, the any-hit walk of ps.nodes (n_chunks
+    is checked, not read)."""
     if o.device.type == "cpu":
         return ST.occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent,
                                          t_max)
-    _check_cuda(o)
-    return _launch_any("scan_sphere_any_hit", ps, n_chunks, o, d, excl_idx,
-                       excl_ent, t_max)
+    return ST.walk_any_hit(ps, n_chunks, o, d, excl_idx, excl_ent, t_max,
+                           LAUNCHES, "scan_sphere_any_hit")
 
 
 def _check_flat(table, o, d, excl_idx, lane_args):

@@ -24,7 +24,9 @@ agree bit for bit.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises -- it never falls back.  Each
-wrapper counts its kernel launches in ``LAUNCHES``.  The kernels are built
+wrapper counts its kernel launches in ``LAUNCHES``; ``ops/chunk_scan.py``'s
+K9 launches the any-hit walk through ``walk_any_hit`` and counts it in its
+own module's ``LAUNCHES``, not here.  The kernels are built
 with ``nvcc`` at first use into ``build/`` beside the package and loaded
 with ``ctypes``.
 """
@@ -43,7 +45,7 @@ from paths_tpu_torch.math import vec
 SPH_STRIDE = 8  # floats per sphere slot: [cx cy cz r^2 gid ent 0 0]
 SPH_PER_ROW = 128 // SPH_STRIDE  # 16
 # Rows per chunk of the scene build's table (2 rows = 32 sphere slots), as
-# the reference's sorted walk; the linear scan's tables take 16
+# the reference's sorted walk; K8's and K9's tables take 16
 # (ops/chunk_scan.py).
 SPH_ROWS_PER_CHUNK = 2
 BIG = 3.4e38
@@ -406,14 +408,12 @@ def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
     return t, gid, ent
 
 
-def occludes_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
-                     excl_ent, t_max):
-    """Any-hit occlusion per lane (bool): some sphere other than excl_idx,
-    of an entity other than excl_ent, is hit at t < t_max (a lane seeded
-    with t_max == 0 reports occluded).  The kernel walks ps.nodes (n_chunks
-    is checked, not read)."""
-    if o.device.type == "cpu":
-        return occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent, t_max)
+def walk_any_hit(ps: PackedSpheres, n_chunks: int, o, d, excl_idx, excl_ent,
+                 t_max, launches: dict, key: str):
+    """Launch the any-hit walk on CUDA tensors (checks first; raises, never
+    falls back) and add one to launches[key] where it launches: the walk of
+    occludes_spheres (K2) and of chunk_scan.occludes_spheres (K9), each
+    counted in its own module's LAUNCHES."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_launch(ps, n_chunks, o, d, excl_idx,
@@ -431,6 +431,18 @@ def occludes_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
         t_max.data_ptr(), n, occ.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
-    _raise_on(err, "sphere_any_hit")
-    LAUNCHES["sphere_any_hit"] += 1
+    _raise_on(err, key)
+    launches[key] += 1
     return occ
+
+
+def occludes_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
+                     excl_ent, t_max):
+    """Any-hit occlusion per lane (bool): some sphere other than excl_idx,
+    of an entity other than excl_ent, is hit at t < t_max (a lane seeded
+    with t_max == 0 reports occluded).  The kernel walks ps.nodes (n_chunks
+    is checked, not read)."""
+    if o.device.type == "cpu":
+        return occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent, t_max)
+    return walk_any_hit(ps, n_chunks, o, d, excl_idx, excl_ent, t_max, LAUNCHES,
+                        "sphere_any_hit")

@@ -38,7 +38,9 @@ bit for bit.
 Dispatch: a wrapper given CPU tensors runs the plain version (which does not
 read the hierarchy); given CUDA tensors it launches the kernel or raises --
 it never falls back.  Each wrapper counts its kernel launches in
-``LAUNCHES``.
+``LAUNCHES``.  ``ops/chunk_scan.py``'s K7 and K9 launch the same kernels
+through ``walk_closest_hit`` and ``walk_any_hit`` and count them in their
+own module's ``LAUNCHES``, not here.
 """
 
 from __future__ import annotations
@@ -423,12 +425,12 @@ def _check_launch(pt: PackedTris, n_chunks, o, d, excl_idx, lane_args):
                              "float4)")
 
 
-def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
-    """Closest triangle hit per lane: (t, gid, ent), t == BIG (gid = ent = 0)
-    where nothing beats t_init.  o, d (N,3) f32; excl_idx (N,) i32 triangle
-    id to skip (-1 none); t_init (N,) f32."""
-    if o.device.type == "cpu":
-        return closest_hit_tris_plain(pt, n_chunks, o, d, excl_idx, t_init)
+def walk_closest_hit(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init,
+                     launches: dict, key: str):
+    """Launch the closest-hit walk on CUDA tensors (checks first; raises, never
+    falls back) and add one to launches[key] where it launches: the walk of
+    closest_hit_tris (K3) and of chunk_scan.closest_hit_chunked (K7), each
+    counted in its own module's LAUNCHES."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_launch(pt, n_chunks, o, d, excl_idx,
@@ -446,16 +448,16 @@ def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
         t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
-    _raise_on(err, "tri_closest_hit")
-    LAUNCHES["tri_closest_hit"] += 1
+    _raise_on(err, key)
+    launches[key] += 1
     return t, gid, ent
 
 
-def occludes_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max):
-    """Any-hit occlusion per lane (bool): some triangle other than excl_idx,
-    of an entity other than excl_ent, is hit at t < t_max."""
-    if o.device.type == "cpu":
-        return occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent, t_max)
+def walk_any_hit(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max,
+                 launches: dict, key: str):
+    """Launch the any-hit walk on CUDA tensors (checks first; raises, never
+    falls back) and add one to launches[key] where it launches: the walk of
+    occludes_tris (K4) and of chunk_scan.occludes_chunked (K9)."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_launch(pt, n_chunks, o, d, excl_idx,
@@ -472,6 +474,25 @@ def occludes_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max
         t_max.data_ptr(), n, occ.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
-    _raise_on(err, "tri_any_hit")
-    LAUNCHES["tri_any_hit"] += 1
+    _raise_on(err, key)
+    launches[key] += 1
     return occ
+
+
+def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
+    """Closest triangle hit per lane: (t, gid, ent), t == BIG (gid = ent = 0)
+    where nothing beats t_init.  o, d (N,3) f32; excl_idx (N,) i32 triangle
+    id to skip (-1 none); t_init (N,) f32."""
+    if o.device.type == "cpu":
+        return closest_hit_tris_plain(pt, n_chunks, o, d, excl_idx, t_init)
+    return walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
+                            "tri_closest_hit")
+
+
+def occludes_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max):
+    """Any-hit occlusion per lane (bool): some triangle other than excl_idx,
+    of an entity other than excl_ent, is hit at t < t_max."""
+    if o.device.type == "cpu":
+        return occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent, t_max)
+    return walk_any_hit(pt, n_chunks, o, d, excl_idx, excl_ent, t_max, LAUNCHES,
+                        "tri_any_hit")

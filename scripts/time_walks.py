@@ -14,9 +14,13 @@ of 25 calls queued behind a spin kernel (chip_smoke.time_device_ms).  The
 cells: K1 and K5's closest-hit form on stress-500's primary and incoherent
 720x480 frames, K2 and K5's any-hit form on the incoherent frame, and all
 four on the frame's first 65,536 incoherent lanes (a main-path tile's
-size); K3 and K4 on each mesh's incoherent frame and on its 65,536-lane
-subset (every tenth-or-so primary ray and the first 32,768 incoherent
-rays); K6 on each mesh's primary and incoherent frames.  Prints one JSON
+size); K8 and K9's sphere form on the incoherent frame over the same
+spheres packed at 16 rows a chunk; K3 and K4 on each mesh's incoherent
+frame and on its 65,536-lane subset (every tenth-or-so primary ray and the
+first 32,768 incoherent rays); K7 and K9's triangle form on doom's table
+repacked at 32 rows a chunk (chip_smoke.repack_tris), on the same subset,
+the incoherent frame and (K7) the primary frame; K6 on each mesh's primary
+and incoherent frames.  Prints one JSON
 line: the card's name and power limit, the label, each cell's two times,
 and a digest of each kernel's outputs (equal digests: the same function).
 Run it for each checkout in turns on one card (parent, change, change,
@@ -96,6 +100,13 @@ def main() -> int:
     cell("K2 tile-size subset", lambda: ST.occludes_spheres(ps, nc, *ah))
     cell("K5 tile-size subset", lambda: CS.flat_closest_hit(ps.tris, *ch))
     cell("K5 any tile-size subset", lambda: CS.flat_occludes(ps.tris, *ah))
+    cpu = lambda x: x.cpu().double().numpy()
+    ps16, nc16, _ = ST.pack_spheres_chunked(
+        cpu(scene.sph_center), cpu(scene.sph_radius), ent=scene.sph_ent.cpu().numpy(),
+        rows_per_chunk=CS.SPH_ROWS_PER_CHUNK, device=dev)
+    cell("K8 incoherent frame", lambda: CS.closest_hit_spheres(ps16, nc16, o, d, excl, t_init))
+    cell("K9 sph incoherent frame",
+         lambda: CS.occludes_spheres(ps16, nc16, o, d, excl, excl_ent, t_max))
 
     for label, path in (("doom", CSM.DOOM), ("dragon", CSM.DRAGON)):
         sd = load_scene_description(path)
@@ -119,6 +130,17 @@ def main() -> int:
         cell(f"K4 {label} frame",
              lambda: TT.occludes_tris(pt, nc, o, d, excl, excl_ent, t_max))
         cell(f"K4 {label} subset", lambda: TT.occludes_tris(pt, nc, so, sd_, sx, se, sm))
+        if label == "doom":
+            pt32, nc32 = CSM.repack_tris(scene, bscene.pbvh, CS.TRI_ROWS_PER_CHUNK, dev)
+            cell("K7 doom primary frame",
+                 lambda: CS.closest_hit_chunked(pt32, nc32, po, pd, p_excl, p_t))
+            cell("K7 doom frame",
+                 lambda: CS.closest_hit_chunked(pt32, nc32, o, d, excl, t_init))
+            cell("K7 doom subset", lambda: CS.closest_hit_chunked(pt32, nc32, so, sd_, sx, st))
+            cell("K9 tri doom frame",
+                 lambda: CS.occludes_chunked(pt32, nc32, o, d, excl, excl_ent, t_max))
+            cell("K9 tri doom subset",
+                 lambda: CS.occludes_chunked(pt32, nc32, so, sd_, sx, se, sm))
         t0 = torch.where(t_max == 0, 0.0, t_init).contiguous()
         cell(f"K6 {label} primary frame",
              lambda: PK.closest_hit_packet(bscene.pbvh, po, pd, p_excl, p_t))

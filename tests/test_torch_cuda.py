@@ -282,7 +282,7 @@ def test_tri_wrapper_refuses_a_table_without_hierarchy(dev):
         TT.occludes_tris(pt._replace(nodes=pt.nodes.cpu()), nc, o, d, excl, excl_ent, t_max)
 
 
-# ---- K5 (flat spheres) and K7-K9 (linear chunk scan) ----
+# ---- K5 (flat spheres), K8 (linear chunk scan), K7 and K9 (walks) ----
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "any"])
@@ -393,6 +393,132 @@ def test_new_wrappers_raise_instead_of_falling_back(dev):
         CS.occludes_chunked(pt, tc, o, d, excl, excl_ent, t_max.cpu())
     with pytest.raises(ValueError):
         CS.occludes_chunked(pt, pt.chunk_meta.shape[0] + 1, o, d, excl, excl_ent, t_max)
+
+
+def _repeat(lanes, n):
+    """The first n lanes of the case's lanes repeated end to end."""
+    reps = -(-n // lanes[0].shape[0])
+    return [torch.cat([x] * reps)[:n].contiguous() for x in lanes]
+
+
+def _exact_seeds(first, t_init, t_max):
+    """t_init at the lane's exact nearest hit on every third lane (the hit
+    must not count) and t_max at it on the next (not occluded by it)."""
+    lane = torch.arange(first.shape[0], device=first.device)
+    hit = first < 3.4e38
+    t_init = torch.where((lane % 3 == 0) & hit, first, t_init).contiguous()
+    t_max = torch.where((lane % 3 == 1) & hit, first, t_max).contiguous()
+    return t_init, t_max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 65537])
+def test_chunked_tri_walks_hold_exact_ties(dev, n):
+    """K7 and K9's triangle form on the table of duplicated triangles whose
+    ties are exact, packed at K7's 32 rows a chunk, at n lanes, with t_init
+    and t_max at exact hit distances: equal to the plain versions bit for
+    bit, each launch counted once in chunk_scan.LAUNCHES and not as K3/K4."""
+    (flat, v0, v1, v2, nrm, ent), lanes = ties_case(CS.TRI_ROWS_PER_CHUNK, 13)
+    pt, nc = TT.pack_chunked(flat, v0, v1, v2, nrm, ent=ent,
+                             rows_per_chunk=CS.TRI_ROWS_PER_CHUNK)
+    pt = TT.PackedTris(*(x.to(dev) for x in pt))
+    o, d, excl, t_init, excl_ent, t_max = _repeat(
+        [torch.as_tensor(np.array(a), device=dev) for a in lanes], n)
+    first = TT.closest_hit_tris_plain(pt, nc, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
+    t_init, t_max = _exact_seeds(first, t_init, t_max)
+    before, walks = dict(CS.LAUNCHES), dict(TT.LAUNCHES)
+    got = CS.closest_hit_chunked(pt, nc, o, d, excl, t_init)
+    for g, w in zip(got, TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    occ = CS.occludes_chunked(pt, nc, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max))
+    torch.cuda.synchronize()
+    assert CS.LAUNCHES["scan_tri_closest_hit"] == before["scan_tri_closest_hit"] + 1
+    assert CS.LAUNCHES["scan_tri_any_hit"] == before["scan_tri_any_hit"] + 1
+    assert TT.LAUNCHES == walks
+    if n > 1000:
+        assert int((got[0] < 3.4e38).sum()) > n // 4 and int(occ.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 65537])
+def test_chunked_sphere_walk_holds_exact_ties(dev, n):
+    """K9's sphere form on the pole pairs packed at K9's 16 rows a chunk, at
+    n lanes, with t_max at the exact nearest hit on some lanes and 0 on
+    others: equal to the plain version bit for bit, each launch counted once
+    in chunk_scan.LAUNCHES and not as K2."""
+    (c, r, ent), lanes = sphere_ties_case()
+    ps, nc, _ = ST.pack_spheres_chunked(c, r, ent=ent, rows_per_chunk=CS.SPH_ROWS_PER_CHUNK,
+                                        device=dev)
+    o, d, excl, t_init, excl_ent, t_max = _repeat(
+        [torch.as_tensor(np.array(a), device=dev) for a in lanes], n)
+    first = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
+    _, t_max = _exact_seeds(first, t_init, t_max)
+    before, walks = dict(CS.LAUNCHES), dict(ST.LAUNCHES)
+    occ = CS.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
+    torch.cuda.synchronize()
+    assert CS.LAUNCHES["scan_sphere_any_hit"] == before["scan_sphere_any_hit"] + 1
+    assert ST.LAUNCHES == walks
+    if n > 1000:
+        assert int(occ.sum()) > n // 8 and int((~occ).sum()) > n // 8
+
+
+@pytest.mark.cuda
+def test_chunked_walks_on_one_row_tables(dev):
+    """K7 and K9 on the smallest tables the packers make: five triangles in
+    one row (a one-node hierarchy) and one sphere: equal to the plain
+    versions bit for bit."""
+    rng = np.random.default_rng(9)
+    c = rng.uniform(-1, 1, (5, 3))
+    v0, v1, v2 = (c + rng.uniform(-0.5, 0.5, (5, 3)) for _ in range(3))
+    nrm = np.cross(v1 - v0, v2 - v0)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    flat = build_bvh(np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2))
+    v0, v1, v2, nrm = (a[flat.order] for a in (v0, v1, v2, nrm))
+    pt, nc = TT.pack_chunked(flat, v0, v1, v2, nrm, ent=np.arange(5) % 2,
+                             rows_per_chunk=CS.TRI_ROWS_PER_CHUNK)
+    assert pt.nodes.shape[0] == 1
+    pt = TT.PackedTris(*(x.to(dev) for x in pt))
+    ps, sc, _ = ST.pack_spheres_chunked(np.zeros((1, 3)), np.ones(1),
+                                        rows_per_chunk=CS.SPH_ROWS_PER_CHUNK, device=dev)
+    m = 512
+    o = torch.as_tensor(rng.uniform(-3, 3, (m, 3)), dtype=torch.float32, device=dev)
+    d = -o + torch.as_tensor(rng.uniform(-0.5, 0.5, (m, 3)), dtype=torch.float32, device=dev)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    excl = torch.as_tensor(rng.integers(-1, 5, m), dtype=torch.int32, device=dev)
+    excl_ent = torch.as_tensor(rng.integers(-1, 2, m), dtype=torch.int32, device=dev)
+    t_init = torch.full((m,), 3.4e38, device=dev)
+    t_max = torch.as_tensor(rng.uniform(0, 6, m), dtype=torch.float32, device=dev)
+    got = CS.closest_hit_chunked(pt, nc, o, d, excl, t_init)
+    for g, w in zip(got, TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)):
+        assert torch.equal(g, w)
+    assert torch.equal(CS.occludes_chunked(pt, nc, o, d, excl, excl_ent, t_max),
+                       TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max))
+    occ = CS.occludes_spheres(ps, sc, o, d, excl, excl_ent, t_max)
+    assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
+    assert int((got[0] < 3.4e38).sum()) > 0 and int(occ.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_chunked_wrappers_refuse_a_table_without_hierarchy(dev):
+    """K7 and K9 walk their tables' hierarchies: a table without one, or
+    with it on another device, is refused, never scanned nor run plain."""
+    pt, nc, (o, d, excl, t_init, excl_ent, t_max) = _mesh_and_rays(
+        dev, 3000, rows=CS.TRI_ROWS_PER_CHUNK)
+    before = dict(CS.LAUNCHES)
+    with pytest.raises(ValueError, match="hierarchy"):
+        CS.closest_hit_chunked(pt._replace(nodes=None), nc, o, d, excl, t_init)
+    with pytest.raises(ValueError, match="hierarchy"):
+        CS.occludes_chunked(pt._replace(nodes=None), nc, o, d, excl, excl_ent, t_max)
+    with pytest.raises(ValueError):
+        CS.closest_hit_chunked(pt._replace(nodes=pt.nodes.cpu()), nc, o, d, excl, t_init)
+    ps, sc, (o, d, excl, _, excl_ent, t_max) = _scene_and_rays(dev, rows=CS.SPH_ROWS_PER_CHUNK)
+    with pytest.raises(ValueError, match="tree"):
+        CS.occludes_spheres(ps._replace(nodes=None), sc, o, d, excl, excl_ent, t_max)
+    with pytest.raises(ValueError):
+        CS.occludes_spheres(ps._replace(nodes=ps.nodes.cpu()), sc, o, d, excl, excl_ent, t_max)
+    assert CS.LAUNCHES == before
 
 
 # ---- K6 (the skip-link BVH walk) ----

@@ -26,6 +26,7 @@ from paths_tpu.ops.sorted_traverse import (
 
 from paths_tpu_torch import camera as TC
 from paths_tpu_torch import render as TR
+from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.scene import build as TB
 from paths_tpu_torch.scene.stress import generate_stress_scene
@@ -143,19 +144,21 @@ def test_launch_checks_reject_bad_inputs(packed):
 # (tests/tri_walk_cases.py::walk, the same stack, pruning and tie rule, in
 # f32) against the plain version, bit for bit: on the 40 spheres above, on
 # stress-500 (primary and incoherent lanes, zero direction components with
-# origins on the tree's box planes, t_init at exact hit distances) and on
-# spheres that share a pole (exact ties between leaves).
+# origins on the tree's box planes, t_init at exact hit distances), on
+# stress-500 packed at 16 rows a chunk (the table that ops/chunk_scan.py's K9
+# walks with K2's kernel) and on spheres that share a pole (exact ties
+# between leaves).
 
-def _stress_case(n_lanes=160, seed=5):
+def _stress_case(n_lanes=160, seed=5, rows=ST.SPH_ROWS_PER_CHUNK):
     """stress-500's spheres as the scene build packs them (f64 centres and
-    radii) and lanes: primary camera rays, incoherent rays from inside the
+    radii; at `rows` rows a chunk) and lanes: primary camera rays, incoherent rays from inside the
     spheres' box, rays along an axis from a plane of the tree's boxes,
     dead lanes, exclusions, finite t_init."""
     sd = generate_stress_scene(500)
     c = np.array([o.sphere.center.tolist() for o in sd.objects])
     r = np.array([o.sphere.radius for o in sd.objects])
     ent = np.arange(len(r)) % 7
-    ps, _, _ = ST.pack_spheres_chunked(c, r, ent=ent)
+    ps, _, _ = ST.pack_spheres_chunked(c, r, ent=ent, rows_per_chunk=rows)
     rng = np.random.default_rng(seed)
     static, _, cam = TB.build_scene(sd, device="cpu")
     cam = TC.resize(cam, 720, 480)
@@ -192,12 +195,14 @@ def _tree_case(which):
         return ps, _rays()
     if which == "stress500":
         return _stress_case()
+    if which == "stress500_16rows":
+        return _stress_case(rows=CS.SPH_ROWS_PER_CHUNK)
     (c, r, ent), lanes = sphere_ties_case()
     ps, _, _ = ST.pack_spheres_chunked(c, r, ent=ent)
     return ps, lanes[:4]
 
 
-TREE_CASES = ["spheres40", "stress500", "pole_pairs"]
+TREE_CASES = ["spheres40", "stress500", "stress500_16rows", "pole_pairs"]
 
 
 @pytest.mark.parametrize("which", TREE_CASES)
@@ -307,7 +312,7 @@ def _any_hit_seeds(which, ps, o, d, excl, rng):
     if which == "pole_pairs":
         excl_ent, t_max = (torch.from_numpy(a) for a in sphere_ties_case()[1][4:])
     else:
-        scale = {"spheres40": 8.0, "stress500": 150.0}[which]
+        scale = 8.0 if which == "spheres40" else 150.0
         excl_ent = torch.from_numpy(rng.integers(-1, n_ent, len(o)).astype(np.int32))
         t_max = torch.from_numpy(np.where(rng.uniform(size=len(o)) < 0.5, BIG,
                                           rng.uniform(0, scale, len(o))).astype(np.float32))

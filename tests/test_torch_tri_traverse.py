@@ -20,8 +20,9 @@ The kernels walk a box hierarchy over the table's rows (``PackedTris.nodes``)
 front to back; the tests below hold the hierarchy's boxes and shape, and a
 Python emulation of the kernels' walk (the same stack, pruning and tie rule,
 in f32) against the plain versions, bit for bit: on the soup, on a table of
-duplicated triangles whose ties are exact, and on doom_standin's table, at 8
-and 20 rows a chunk.
+duplicated triangles whose ties are exact, and on doom_standin's table, at 8,
+20 and 32 rows a chunk (32: the table that ops/chunk_scan.py's K7 and K9
+walk with the same kernels).
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there.
@@ -44,6 +45,7 @@ from paths_tpu.ops.sorted_traverse import (
 )
 
 from paths_tpu_torch.bvh.build import build_bvh as port_bvh
+from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene import build as TB
 from paths_tpu_torch.scene import models as TM
@@ -252,9 +254,13 @@ def doom():
     return _doom()
 
 
+# The chunk sizes whose tables the walk kernels read: K3/K4's two, and K7/K9's.
+WALK_ROWS = (TT.ROWS_PER_CHUNK, TT.ROWS_PER_CHUNK_LARGE, CS.TRI_ROWS_PER_CHUNK)
+
+
 @pytest.fixture(scope="module")
 def ties():
-    return {rows: ties_case(rows, N_ENT) for rows in (TT.ROWS_PER_CHUNK, TT.ROWS_PER_CHUNK_LARGE)}
+    return {rows: ties_case(rows, N_ENT) for rows in WALK_ROWS}
 
 
 def _case(request, which, rows):
@@ -271,8 +277,7 @@ def _case(request, which, rows):
     return flat, (v0, v1, v2, n, ent), pt, nc, lanes
 
 
-CASES = [(w, r) for w in ("soup", "ties", "doom")
-         for r in (TT.ROWS_PER_CHUNK, TT.ROWS_PER_CHUNK_LARGE)]
+CASES = [(w, r) for w in ("soup", "ties", "doom") for r in WALK_ROWS]
 
 
 @pytest.mark.parametrize("which,rows", CASES)
