@@ -6,7 +6,7 @@
 Phases, one line each (any failure exits non-zero before the last line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
-     csrc/flat_spheres.cu, csrc/chunk_scan.cu (K8 only), csrc/packet_bvh.cu; nvcc with
+     csrc/flat_spheres.cu, csrc/packet_bvh.cu; nvcc with
      ptxas -v, whose registers, stack frame, spills and shared memory are
      printed per kernel) and the C++ BVH builder (csrc/bvh_builder.cc, g++),
      all started together, timed;
@@ -29,16 +29,17 @@ Phases, one line each (any failure exits non-zero before the last line):
      tree nodes some lane enters, read once, and the lanes' inputs and
      outputs;
   3g. K1/K2 and both forms of K5 held equal to their plain versions on
-     4,096 adversarial lanes of the stress-500 table, and K9's sphere form
-     on the same lanes over the same spheres packed at 16 rows: rays
+     4,096 adversarial lanes of the stress-500 table, and K8 and K9's sphere
+     form on the same lanes over the same spheres packed at 16 rows: rays
      aimed exactly at sphere centres and grazing spheres (the discriminant
      within rounding of 0), t_init and t_max at a lane's exact hit and
      occluder distances, t_max == 0, dead lanes, zero direction components,
      origins on a plane of the tree's boxes;
-  3c/4c. the same for K5 (the flat kernels) on the same table and frames,
+  3c/4c. the same for K5 (the flat kernels) on the same table and frames
+     (each family also held on the frame's first 65,536 incoherent lanes),
      and for K8 and K9's sphere form on the stress-500 spheres packed at 16
-     rows per chunk (K9 walks that table's tree with K2's kernel, K8 scans
-     its chunks); a bound belongs to the function, so K5's and K8/K9's
+     rows per chunk (K8 and K9 walk that table's tree with K1's and K2's
+     kernels); a bound belongs to the function, so K5's and K8/K9's
      are K1/K2's (counted on the leaves of K1's tree over the same rows).
      K5 tests every slot for every lane, so its all-pairs floor (lanes x
      slots x OPS_PER_MISSED_PAIR over the FP32 peak) is printed beside;
@@ -81,26 +82,36 @@ Phases, one line each (any failure exits non-zero before the last line):
      dragon_standin (2 spp) at 720x480 on the BVH route
      (build_scene(..., bvh_threshold=32768), render_image): K6 launched,
      K3/K4 not, each image compared with its kernel-route counterpart (same
-     seed; relative MSE below BVH_VS_KERNEL_REL_MSE).  Images must be
-     finite, non-negative and not all zero.  K7-K9 are reached through the
-     ops API only (phases 3c-4d), so their main-path launches are 0;
+     seed; relative MSE below BVH_VS_KERNEL_REL_MSE); then the HDRI sky
+     with environment NEE: (a) the CLI on scenes/env_demo.yml --env-nee at
+     720x480, 4 spp (three small spheres and the ground: no kernel may
+     launch) and (b) the lit stress scene under scenes/assets/sunrise.hdr
+     with env_nee on (hdri_lit_scene) at 720x480, 4 spp through
+     build_scene and render_image (K1; K2 for the light's and the
+     environment's shadow queries, so more K2 launches than the lit stress
+     run).  Images must be finite, non-negative and not all zero.  K7-K9
+     are reached through the ops API only (phases 3c-4d), so their
+     main-path launches are 0;
   6. profile: one main-path tile (65,536 lanes) of the lit stress scene, of
      doom_standin, of the lit stress scene on the flat route, of
      doom_standin on the BVH route, and of dragon_standin (2 spp) on the
-     kernel and the BVH route under torch.profiler (wall vs device-busy
-     time, the kernels' share, launches per bounce iteration); then each
-     kernel held against its plain version and timed, as in 3/4, on the
-     inputs that tile's second bounce iteration gave it (on the flat route
-     also K1/K2 on the same rays);
+     kernel and the BVH route, and of configuration (b), under
+     torch.profiler (wall vs device-busy time, the kernels' share, launches
+     per bounce iteration); then each kernel held against its plain version
+     and timed, as in 3/4, on the inputs that tile's second bounce
+     iteration gave it (on the flat route also K1/K2 on the same rays; on
+     (b) K2 on the environment NEE query: t_max BIG, excl_ent -1);
   7. GPU vs CPU: the mixed sphere + mesh scene (a 128-triangle grid, a
      sphere light) at 48x32, 2 spp, 3 bounces, rendered with the kernels and
      with the plain versions on the CPU, must agree to relative MSE < 1e-4:
      with 40 spheres on the walk route (K1-K4) and on the flat route (K5,
      K3, K4), and with 8 spheres on the BVH route (bvh_threshold=64: K6 on
      the card, its plain version on the CPU; each of the card's K6 queries
-     held bit for bit against the plain version on its inputs).
+     held bit for bit against the plain version on its inputs); and
+     scenes/env_demo.yml with environment NEE (the HDRI tables and lookups).
 Then a JSON line of per-kernel results (ms, device_ms, plain_ms and bound_ms at the main
-path's tile for K1-K6; at the doom subset for K7 and K9's triangle form and
+path's tile for K1-K6, env_tile_* at configuration (b)'s for K1/K2; at the
+doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
 doom_*/dragon_* at the shapes of 4, 4b, 4d and 4e), the nvidia-smi name/power
 line, and the final JSON status line.  Needs one CUDA device.
@@ -186,7 +197,7 @@ KERNELS = {
         source="paths_tpu_torch/csrc/tri_traverse.cu"),
     "scan_sphere_closest_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:995",
-        source="paths_tpu_torch/csrc/chunk_scan.cu"),
+        source="paths_tpu_torch/csrc/sphere_traverse.cu"),
     "scan_tri_any_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:840",
         source="paths_tpu_torch/csrc/tri_traverse.cu"),
@@ -200,6 +211,8 @@ KERNELS = {
 FLAT_ENV = "PATHS_TPU_SPH_FLAT"
 DOOM = os.path.join(REPO, "scenes", "doom_standin.yml")
 DRAGON = os.path.join(REPO, "scenes", "dragon_standin.yml")
+ENV_DEMO = os.path.join(REPO, "scenes", "env_demo.yml")
+SUNRISE = os.path.join(REPO, "scenes", "assets", "sunrise.hdr")
 
 
 def log(msg: str) -> None:
@@ -231,6 +244,20 @@ def launch_counts() -> dict:
     return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
+def hdri_lit_scene(device):
+    """Configuration (b): the lit stress scene (500 spheres, one sphere light)
+    under the bundled sunrise HDRI, with environment NEE on: (static,
+    scene, camera)."""
+    from paths_tpu_torch.scene import desc as D
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_lit_stress_scene
+
+    sd = generate_lit_stress_scene(500)
+    sd.skybox = D.SkyboxD(kind="hdri", filename=SUNRISE)
+    static, scene, cam = build_scene(sd, device=device)
+    return dataclasses.replace(static, env_nee=True), scene, cam
+
+
 class flat_route:
     """Builds inside the block choose the flat sphere kernel
     (PATHS_TPU_SPH_FLAT=1, read by the scene build)."""
@@ -249,7 +276,7 @@ class flat_route:
 # ---------------------------------------------------------------- phase 2
 
 def build_all():
-    """Build the five CUDA libraries and the C++ BVH builder at once (one
+    """Build the four CUDA libraries and csrc/bvh_builder.cc at once (one
     compiler process each), then bind them; returns {source: seconds}."""
     from paths_tpu_torch import native
     from paths_tpu_torch.bvh import build as BB
@@ -268,13 +295,12 @@ def build_all():
     jobs = {"sphere_traverse.cu": lambda: ST.build_kernels(verbose=True),
             "tri_traverse.cu": lambda: TT.build_kernels(verbose=True),
             "flat_spheres.cu": nvcc("flat_spheres.cu"),
-            "chunk_scan.cu": nvcc("chunk_scan.cu"),
             "packet_bvh.cu": lambda: PK.build_kernels(verbose=True),
             "bvh_builder.cc": BB._native_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futures = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
         built = {name: f.result() for name, f in futures.items()}
-    CS.build_kernels()  # binds the two libraries just built
+    CS.build_kernels()  # binds the library just built
     return built
 
 
@@ -700,13 +726,21 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
         err = max(err, check_equal(
             f"{ah_name} primary", ah(table, chunks, po, pd, p_excl, excl_ent, t_max),
             ah_plain(table, chunks, po, pd, p_excl, excl_ent, t_max)))
+        m = min(SUBSET, n)  # a main-path tile's size
+        sub = [x[:m].contiguous() for x in (o, d, excl, t_init, excl_ent, t_max)]
+        err = max(err, check_equal(f"{ch_name} tile-size subset", ch(table, chunks, *sub[:4]),
+                                   ch_plain(table, chunks, *sub[:4])),
+                  check_equal(f"{ah_name} tile-size subset",
+                              ah(table, chunks, *sub[:3], *sub[4:]),
+                              ah_plain(table, chunks, *sub[:3], *sub[4:])))
         fam = measure(kind, "incoherent frame", table, chunks, (o, d, excl, t_init),
                       (o, d, excl, excl_ent, t_max), timer, bound=sphere_leaf_bound(ps))
         hits = int((ch(table, chunks, o, d, excl, t_init)[0] < BIG).sum().item())
         occl = int(ah(table, chunks, o, d, excl, excl_ent, t_max).sum().item())
         log(f"[parity] {label} == plain at {n} lanes x {table.tris.shape[0] * 16} "
             f"slots, {chunks} chunks of {int(table.chunk_meta[0, 7].item())} rows "
-            f"(primary + incoherent rays; incoherent: {hits} hits, {occl} occluded)")
+            f"(primary + incoherent rays, and the first {m} incoherent lanes alone; "
+            f"incoherent: {hits} hits, {occl} occluded)")
         t_prim = timer(lambda: ch(table, chunks, po, pd, p_excl, p_t))
         log(f"[timing] {ch_name} on primary rays: {t_prim:.4f} ms")
         for r in fam.values():
@@ -716,7 +750,7 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
             recs[ch_name]["primary_ms"] = t_prim
     err = hold_adversarial_spheres(ps, nc, ps16, nc16, static.n_entities, device)
     for name in ("sphere_closest_hit", "sphere_any_hit", "flat_sphere_closest_hit",
-                 "flat_sphere_any_hit", "scan_sphere_any_hit"):
+                 "flat_sphere_any_hit", "scan_sphere_closest_hit", "scan_sphere_any_hit"):
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
     return recs
 
@@ -792,9 +826,10 @@ def adversarial_sphere_lanes(ps, nc, n, n_entities, device, seed=7):
 
 def hold_adversarial_spheres(ps, nc, ps16, nc16, n_entities, device, n=4096):
     """3g: K1, K2 and both forms of K5 against their plain versions on
-    adversarial_sphere_lanes of the stress-500 table, and K9's sphere form on
-    the same lanes over ps16 (the same spheres at 16 rows a chunk): equal
-    outputs, bit for bit.  Returns the largest absolute difference (0)."""
+    adversarial_sphere_lanes of the stress-500 table, and K8 and K9's sphere
+    form on the same lanes over ps16 (the same spheres at 16 rows a chunk):
+    equal outputs, bit for bit.  Returns the largest absolute difference
+    (0)."""
     ST, _, CS, _ = _kernel_modules()
     ch_args, ah_args, counts = adversarial_sphere_lanes(ps, nc, n, n_entities, device)
     want_ch = ST.closest_hit_spheres_plain(ps.tris, *ch_args)
@@ -807,10 +842,13 @@ def hold_adversarial_spheres(ps, nc, ps16, nc16, n_entities, device, n=4096):
                                CS.flat_closest_hit(ps.tris, *ch_args), want_ch),
               check_equal("flat_sphere_any_hit adversarial",
                           CS.flat_occludes(ps.tris, *ah_args), want_ah),
+              check_equal("scan_sphere_closest_hit adversarial (16-row chunks)",
+                          CS.closest_hit_spheres(ps16, nc16, *ch_args),
+                          ST.closest_hit_spheres_plain(ps16.tris, *ch_args)),
               check_equal("scan_sphere_any_hit adversarial (16-row chunks)",
                           CS.occludes_spheres(ps16, nc16, *ah_args),
                           ST.occludes_spheres_plain(ps16.tris, *ah_args)))
-    log(f"[parity] stress-500: K1/K2, K5 (G = {CS.FLAT_GROUP} threads a lane) and K9 "
+    log(f"[parity] stress-500: K1/K2, K5 (G = {CS.FLAT_GROUP} threads a lane) and K8/K9 "
         f"(16-row chunks) == plain on "
         f"{n} adversarial lanes ({counts['hits']} "
         f"hits, {counts['grazing']} grazing lanes with the discriminant within 1e-4 r^2 "
@@ -1179,10 +1217,13 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     """Phase 5: the CLI on the stress scene, the lit stress scene through the
     library entry points, the CLI on the two mesh scenes, then the stress
     and lit stress scenes again on the flat route, each image held to its
-    walk-route counterpart, and the two mesh scenes again on the BVH route
+    walk-route counterpart, the two mesh scenes again on the BVH route
     (build_scene(..., bvh_threshold=32768) and render_image, at the same
-    spp and seed), each image compared with its kernel-route counterpart.
-    Returns the summed launch counts of the eight paths."""
+    spp and seed), each image compared with its kernel-route counterpart,
+    then the CLI on env_demo with --env-nee (no kernel) and configuration
+    (b), hdri_lit_scene, through the library entry points (K1, and K2 more
+    often than on the lit stress scene).  Returns the summed launch counts
+    of the ten paths."""
     import numpy as np
     import torch
 
@@ -1211,8 +1252,8 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
             f"scene build)")
         return img
 
-    def lit(name):
-        static, scene, cam = build_scene(generate_lit_stress_scene(500), device=device)
+    def lit(name, make=lambda: build_scene(generate_lit_stress_scene(500), device=device)):
+        static, scene, cam = make()
         t = time.time()
         img = render_image(static, scene, C.resize(cam, width, height), width,
                            height, spp=spp[1], seed=0)
@@ -1268,7 +1309,22 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
         drive("dragon_standin BVH route", lambda: bvh_route(
             "dragon_standin BVH route", DRAGON, spp[3]), ["packet_closest_hit"],
             absent=tri),
+        # The HDRI sky with environment NEE: (a) the CLI on env_demo (three
+        # small spheres and the ground: no kernel), (b) the lit stress
+        # scene under the HDRI, whose second shadow query (t_max BIG, no
+        # entity excluded) goes to K2 beside the light's.
+        drive("env_demo --env-nee", lambda: timed_cli(
+            "env_demo --env-nee", [ENV_DEMO, "--env-nee"] + cli_args("env_demo.png", spp[1]),
+            spp[1]), [], absent=list(KERNELS)),
+        drive("HDRI lit stress-500 env NEE", lambda: lit(
+            "HDRI lit stress-500 env NEE", lambda: hdri_lit_scene(device)), walk),
     ]
+    lit_k2, env_k2 = runs[1][0]["sphere_any_hit"], runs[9][0]["sphere_any_hit"]
+    log(f"[main] sphere_any_hit launches: lit stress-500 {lit_k2}, with the HDRI sky "
+        f"and environment NEE {env_k2} (closest hit {runs[9][0]['sphere_closest_hit']})")
+    if not env_k2 > lit_k2:
+        raise AssertionError("environment NEE did not add K2 launches to the lit "
+                             f"stress scene ({env_k2} against {lit_k2})")
     for (_, walk_img), (_, flat_img), name in zip(runs[:2], runs[4:6], ("stress-500", "lit stress-500")):
         rel = rel_mse(flat_img, walk_img)
         diff = float(np.abs(flat_img - walk_img).max())
@@ -1310,20 +1366,21 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     return total
 
 
-def capture_inputs(run, module, names, call_index=1):
+def capture_inputs(run, module, names, call_indices):
     """Run run() with the kernel wrappers `names` of `module` spied on.
-    Returns, per wrapper name, the arguments of its call number call_index
-    (0-based), tensors cloned."""
+    Returns, per wrapper name, the arguments of its call number given by
+    call_indices (0-based, one per name), tensors cloned."""
     import torch
 
     origs = {n: getattr(module, n) for n in names}
+    call_index = dict(zip(names, call_indices))
     calls = {}
     saved = {}
     copy = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
 
     def spy(name):
         def call(*args):
-            if calls.get(name, 0) == call_index:
+            if calls.get(name, 0) == call_index[name]:
                 saved[name] = [copy(a) for a in args]
             calls[name] = calls.get(name, 0) + 1
             return origs[name](*args)
@@ -1345,8 +1402,10 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     under torch.profiler: wall time against device-busy time, the traversal
     kernels' share, and the kernel launches per bounce iteration.  Then the
     scene's traversal kernels held and timed on the inputs that tile's
-    second bounce iteration gave them (closest-hit and any-hit; on the BVH
-    route, kind "packet", K6's closest-hit query of that iteration), bounded
+    second bounce iteration gave them (closest-hit and any-hit; with kind
+    "hdri", configuration (b), the any-hit query is that iteration's
+    environment NEE query; on the BVH route, kind "packet", K6's
+    closest-hit query of that iteration), bounded
     by `bound` (default: the leaves of K1's tree for the spheres and of the
     BVH for K6; the triangle kernels are given leaf_bound).  Returns
     per-kernel records at that shape."""
@@ -1360,13 +1419,18 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
 
     ST, TT, CS, PK = _kernel_modules()
     # (module, wrappers, kernel source in the profiler's names, call index of
-    # the second bounce iteration's query): K6 takes the closest-hit and the
-    # shadow query of every iteration, the others one call per wrapper.
-    module, names, src, call = {
-        "sphere": (ST, ("closest_hit_spheres", "occludes_spheres"), "sphere_traverse", 1),
-        "tri": (TT, ("closest_hit_tris", "occludes_tris"), "tri_traverse", 1),
-        "flat": (CS, ("flat_closest_hit", "flat_occludes"), "flat_spheres", 1),
-        "packet": (PK, ("closest_hit_packet",), "packet_walk", 2),
+    # the second bounce iteration's query, per wrapper): K6 takes the
+    # closest-hit and the shadow query of every iteration; "hdri" (the lit
+    # stress scene with environment NEE) makes two any-hit calls an
+    # iteration, the light's and the environment's, so its fourth is the
+    # environment's of the second iteration; the others one call per
+    # wrapper.
+    module, names, src, calls = {
+        "sphere": (ST, ("closest_hit_spheres", "occludes_spheres"), "sphere_traverse", (1, 1)),
+        "hdri": (ST, ("closest_hit_spheres", "occludes_spheres"), "sphere_traverse", (1, 3)),
+        "tri": (TT, ("closest_hit_tris", "occludes_tris"), "tri_traverse", (1, 1)),
+        "flat": (CS, ("flat_closest_hit", "flat_occludes"), "flat_spheres", (1, 1)),
+        "packet": (PK, ("closest_hit_packet",), "packet_walk", (2,)),
     }[kind]
     static, scene, cam = make_scene()
     cam = C.resize(cam, width, height)
@@ -1376,7 +1440,7 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     # Warm-up, capturing the second bounce iteration's kernel inputs.
     cap = capture_inputs(
         lambda: render_samples(static, scene, cam, px, py, pix, 0, 1, 0), module,
-        names, call)
+        names, calls)
     torch.cuda.synchronize()
     step, iters = I.path_step, [0]
 
@@ -1426,6 +1490,12 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
         return measure_packet(f"{label} main-path tile", args[0], args[1:], timer,
                               bound or leaf_bound(scene.pbvh))
     ch_a, ah_a = cap[names[0]], cap[names[1]]
+    if kind == "hdri":  # the environment's query: nothing bounds or excludes it
+        excl_ent, t_max = ah_a[-2], ah_a[-1]
+        if not (bool((t_max == BIG).all()) and bool((excl_ent == -1).all())):
+            raise AssertionError(f"{label}: the captured any-hit call is not the "
+                                 "environment's query")
+        kind = "sphere"
     if kind == "flat":  # (rows, o, d, ...): the bound counts K1's tree's leaves
         table, nc, ch_args, ah_args = scene.psph, static.sph_chunks, ch_a[1:], ah_a[1:]
     else:  # (table, n_chunks, o, d, ...)
@@ -1462,15 +1532,19 @@ def gpu_vs_cpu(device, route="walk"):
     K4; "bvh": 8 spheres and the grid built with bvh_threshold=64, so the
     card runs K6 and the CPU its plain version, one function: every K6 call
     of the card's render is held bit for bit against the plain version on
-    its inputs.  The images must agree to relative MSE < 1e-4 (the eager
+    its inputs; "env": scenes/env_demo.yml with environment NEE (no
+    kernel: the HDRI tables, sample_env and the lookups on the card against
+    the CPU).  The images must agree to relative MSE < 1e-4 (the eager
     shading between the queries runs PyTorch's CUDA and CPU operators, whose
     transcendentals and reductions round differently)."""
     import numpy as np
 
     from paths_tpu_torch import camera as C
+    from paths_tpu_torch import sky as SK
     from paths_tpu_torch.render import render_image
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_mixed_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
     PK = _kernel_modules()[3]
     imgs, held = [], [0]
@@ -1492,11 +1566,17 @@ def gpu_vs_cpu(device, route="walk"):
             elif route == "bvh":
                 static, scene, cam = build_scene(
                     generate_mixed_scene(tmp, n_spheres=8), device=dev, bvh_threshold=64)
+            elif route == "env":
+                static, scene, cam = build_scene(load_scene_description(ENV_DEMO),
+                                                 device=dev)
+                static = dataclasses.replace(static, env_nee=True)
             else:
                 static, scene, cam = build_scene(
                     generate_mixed_scene(tmp, n_spheres=40), device=dev)
             if route == "bvh":
                 assert static.use_bvh and static.tri_chunks == 0
+            elif route == "env":
+                assert static.sky_type == SK.HDRI and static.env_nee
             else:
                 assert static.sph_chunks > 0 and static.tri_chunks > 0
                 assert static.sph_flat == (route == "flat")
@@ -1517,7 +1597,8 @@ def gpu_vs_cpu(device, route="walk"):
     differ = int((np.abs(imgs[0] - imgs[1]).max(-1) > 0).sum())
     extra = (f"; each of the card's {held[0]} K6 queries equal to the plain version "
              "on its inputs" if route == "bvh" else "")
-    log(f"[gpu-vs-cpu] mixed scene 48x32 2 spp, {route} route: relative MSE "
+    scene_name = "env_demo --env-nee" if route == "env" else "mixed scene"
+    log(f"[gpu-vs-cpu] {scene_name} 48x32 2 spp, {route} route: relative MSE "
         f"{rel:.3e} (< 1e-4), {differ} of {48 * 32} pixels differ{extra}")
 
 
@@ -1548,7 +1629,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = main_path(device, tmp)
-    log(f"[main] kernel launches over the eight paths: {launches}")
+    log(f"[main] kernel launches over the ten paths: {launches}")
 
     tile = where_time_goes(
         device, "sphere", "lit stress-500",
@@ -1575,12 +1656,15 @@ def main() -> int:
         bound=leaf_bound(dragon_bvh[1].pbvh))
     dragon_tile.update(where_time_goes(device, "packet", "dragon_standin BVH route",
                                        lambda: dragon_bvh, spp=2))
-    for route in ("walk", "flat", "bvh"):
+    env_tile = where_time_goes(device, "hdri", "HDRI lit stress-500 env NEE",
+                               lambda: hdri_lit_scene(device))
+    for route in ("walk", "flat", "bvh", "env"):
         gpu_vs_cpu(device, route)
 
     # ms, plain_ms and bound_ms are at the main path's shape (one tile of
     # bounce and shadow rays) for K1-K6 (dragon_tile_*: K3, K4 and K6 on
-    # dragon's tile); K7-K9 are off the main path, so
+    # dragon's tile; env_tile_*: K1 and K2 on configuration (b)'s tile, K2
+    # on its environment NEE query); K7-K9 are off the main path, so
     # theirs are at the doom subset (triangles) and the incoherent stress-500
     # frame (spheres).  frame_* at a full incoherent frame (spheres) and
     # doom_*/dragon_* at the 65,536-lane subsets (triangles; their frame_ms
@@ -1603,9 +1687,11 @@ def main() -> int:
                      frame_plain_ms=frame[name]["plain_ms"],
                      frame_bound_ms=frame[name]["bound_ms"])
             r.update({f"frame_{k}": v for k, v in frame[name].items() if k not in base})
-        if name in dragon_tile:
-            r.update({f"dragon_tile_{k}": dragon_tile[name][k]
-                      for k in ("ms", "device_ms", "plain_ms", "bound_ms")})
+        for prefix, at_tile in (("dragon_tile", dragon_tile), ("env_tile", env_tile)):
+            if name in at_tile:
+                r["max_abs_err"] = max(r["max_abs_err"], at_tile[name]["max_abs_err"])
+                r.update({f"{prefix}_{k}": at_tile[name][k]
+                          for k in ("ms", "device_ms", "plain_ms", "bound_ms")})
         for m, rec in mesh.items():
             if name in rec:
                 r["max_abs_err"] = max(r["max_abs_err"], rec[name]["max_abs_err"])

@@ -7,7 +7,7 @@ given.
 Usage:
   python -m paths_tpu_torch.cli [scene.yml] [-o out.png] [--spp N]
       [--size WxH] [--seed N] [--tile N] [--stress N] [--max-bounces N]
-      [--cpu]
+      [--env-nee] [--cpu]
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import time
 
 # Options of the reference CLI that this port does not have yet.
 _NOT_PORTED = ("--dp", "--multihost", "--checkpoint", "--profile",
-               "--native-cpu", "--env-nee", "--check")
+               "--native-cpu", "--check")
 
 
 def main(argv=None):
@@ -32,6 +32,8 @@ def main(argv=None):
     ap.add_argument("--stress", type=int, default=500,
                     help="stress-scene sphere count when no scene given")
     ap.add_argument("--max-bounces", type=int, default=10)
+    ap.add_argument("--env-nee", action="store_true",
+                    help="importance-sample the HDRI sky for direct light")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch versions of the kernels)")
     for flag in _NOT_PORTED:
@@ -61,7 +63,8 @@ def main(argv=None):
         sd = generate_stress_scene(args.stress)
 
     static, scene, cam = build_scene(sd, device=device)
-    static = dataclasses.replace(static, max_bounces=args.max_bounces)
+    static = dataclasses.replace(static, env_nee=args.env_nee,
+                                 max_bounces=args.max_bounces)
     width, height = sd.camera.image_width, sd.camera.image_height
     if args.size:
         width, height = (int(v) for v in args.size.lower().split("x"))

@@ -11,6 +11,10 @@ offset, trace.rs:57,89), and point lights use the evidently intended
 geometry.  All randomness is a counter-based function of (pixel, sample,
 bounce, dim), see ``sampling/hashing.py``.
 
+With ``SceneStatic.env_nee`` on an HDRI sky, each bounce also samples the
+sky for direct light (``sky.sample_env``) and sends a second shadow query,
+unbounded and excluding no entity, through ``occluded_query``.
+
 Closest-hit and shadow queries over the small spheres and the triangles go
 to the traversal kernels (``ops/sphere_traverse.py``,
 ``ops/tri_traverse.py``; the small spheres to the flat kernel of
@@ -347,6 +351,7 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
     state: (o, d, throughput, colour, alive, last_spec, excl_kind, excl_idx).
     u(bounce, dim): per-lane uniform for this bounce and dimension slot.
     """
+    env_nee = static.env_nee and static.sky_type == SK.HDRI
     (o, d, throughput, colour, alive, last_spec, excl_kind, excl_idx) = state
 
     # Dead lanes keep stale rays; their origins are pushed far outside the
@@ -354,9 +359,14 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
     o_eff = torch.where(alive[..., None], o, DEAD_ORIGIN)
     hit = intersect_full(static, scene, o_eff, d, excl_kind, excl_idx)
 
-    # Miss -> skybox, evaluated at -direction (trace.rs:18-23).
+    # Miss -> skybox, evaluated at -direction (trace.rs:18-23).  With
+    # environment NEE on, diffuse-bounce misses are already covered by the
+    # environment samples, so an escaping ray collects the sky only after a
+    # specular bounce -- the rule for area lights (trace.rs:30-41).
     sky_col = SK.ambient_light(static.sky_type, scene.sky, -d)
     miss = alive & ~hit["found"]
+    if env_nee:
+        miss = miss & last_spec
     colour = colour + torch.where(miss[..., None], throughput * sky_col, 0.0)
     alive = alive & hit["found"]
 
@@ -409,6 +419,30 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
                                   hit["kind"], hit["idx"], t_max_q, excl_ent_q)
         ok = want & ~occluded
         colour = colour + torch.where(ok[..., None], direct * throughput, 0.0)
+
+    # ---- Environment NEE: the HDRI sampled for direct light (the
+    # reference package's extension; upstream only collects the sky on a
+    # miss) ----
+    if env_nee:
+        e_dir, e_inv_pdf, e_rad = SK.sample_env(
+            scene.sky, u(bounce, H.DIM_ENV_CDF), u(bounce, H.DIM_ENV_JX),
+            u(bounce, H.DIM_ENV_JY))
+        e_shadow_dir = -e_dir  # surface -> sky
+        e_shadow_o = location + normal * SHADOW_EPS
+        e_cos = vec.dot(normal, e_shadow_dir)
+        e_brdf = M.eval_brdf(mat, vec_out, e_dir, normal)
+        e_direct = e_rad * e_brdf * e_inv_pdf[..., None]
+        # Any hit at all blocks the sky: t_max BIG and no entity excluded,
+        # as (N,) lanes, as the wrappers take them.
+        e_want = alive & (e_cos > 0.0) & (vec.max_component(e_direct) > 0.0)
+        e_o_eff = torch.where(e_want[..., None], e_shadow_o, DEAD_ORIGIN)
+        n = o.shape[0]
+        e_occ = occluded_query(
+            static, scene, e_o_eff, e_shadow_dir, hit["kind"], hit["idx"],
+            torch.full((n,), BIG, device=o.device),
+            torch.full((n,), -1, dtype=torch.int32, device=o.device))
+        e_ok = e_want & ~e_occ
+        colour = colour + torch.where(e_ok[..., None], e_direct * throughput, 0.0)
 
     # ---- BSDF sample & bounce (trace.rs:84-101) ----
     new_dir, pdf, brdf, is_spec = M.sample(

@@ -1,6 +1,6 @@
-"""The flat sphere kernels (K5), the linear chunk-scan kernel (K8) and the
-chunked forms K7 and K9, which walk their tables' hierarchies: their CUDA
-launches and their plain PyTorch versions.
+"""The flat sphere kernels (K5) and the chunked forms K7, K8 and K9, which
+walk their tables' hierarchies: their CUDA launches and their plain PyTorch
+versions.
 
 Ports the K5, K7, K8 and K9 parts of ``paths_tpu/ops/pallas_traverse.py``
 under the reference's names, used module-qualified:
@@ -22,23 +22,24 @@ against -- flat brute force in the kernels' arithmetic
 (``sphere_traverse.closest_hit_spheres_plain``, ``occludes_spheres_plain``,
 ``tri_traverse.closest_hit_tris_plain``, ``occludes_tris_plain``) -- so those
 are their plain versions here, and the tests hold them against the
-reference's kernels in interpret mode.  The kernels: ``csrc/flat_spheres.cu``
-(K5) and ``csrc/chunk_scan.cu`` (K8, the reference's linear culled-chunk
-scan).  K7 and K9 launch the walks that compute the same functions on the
-same tables: K7 the closest-hit walk of ``csrc/tri_traverse.cu`` over
-``PackedTris.nodes`` (K3's kernel, with its chunk recentring and its (t,
-table position) tie rule, which is K7's first slot in table order), K9's
-triangle form the any-hit walk of the same file (K4's), K9's sphere form
-the any-hit walk of ``csrc/sphere_traverse.cu`` over ``PackedSpheres.nodes``
-(K2's).  On the card they refuse a table without its hierarchy (one
-rebuilt from the reference's arrays, ``scene/types.py::scene_from_numpy``)
-with a ValueError, where the scans took it.
+reference's kernels in interpret mode.  K5's kernel is
+``csrc/flat_spheres.cu``.  K7, K8 and K9 launch the walks that compute the
+same functions on the same tables: K7 the closest-hit walk of
+``csrc/tri_traverse.cu`` over ``PackedTris.nodes`` (K3's kernel, with its
+chunk recentring and its (t, table position) tie rule, which is K7's first
+slot in table order), K9's triangle form the any-hit walk of the same file
+(K4's), K8 and K9's sphere form the closest-hit and any-hit walks of
+``csrc/sphere_traverse.cu`` over ``PackedSpheres.nodes`` (K1's and K2's;
+the (t, slot index) tie rule is K8's first slot in table order).  On the
+card they refuse a table without its hierarchy (one rebuilt from the
+reference's arrays, ``scene/types.py::scene_from_numpy``) with a
+ValueError.
 
 Dispatch, as for K1-K4: a wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches the kernel or raises -- it never falls back.
 Each wrapper counts its kernel launches in this module's ``LAUNCHES`` and
-nowhere else: a K7 call adds one to ``LAUNCHES["scan_tri_closest_hit"]``
-and none to ``tri_traverse.LAUNCHES``, although it runs K3's kernel.  The
+nowhere else: a K8 call adds one to ``LAUNCHES["scan_sphere_closest_hit"]``
+and none to ``sphere_traverse.LAUNCHES``, although it runs K1's kernel.  The
 kernels are built with ``nvcc`` at first use into ``build/`` beside the
 package and loaded with ``ctypes``.
 """
@@ -86,19 +87,18 @@ _libs = {}
 
 
 def build_kernels(verbose: bool = False) -> dict:
-    """Build csrc/flat_spheres.cu and csrc/chunk_scan.cu (once per source
-    version) and load them: {"flat": CDLL, "scan": CDLL}.  K7 and K9 build
-    their walks' libraries through tri_traverse and sphere_traverse."""
+    """Build csrc/flat_spheres.cu (once per source version) and load it:
+    {"flat": CDLL}.  K7, K8 and K9 build their walks' libraries through
+    tri_traverse and sphere_traverse."""
     if not _libs:
         p, i = ctypes.c_void_p, ctypes.c_int
-        flat, scan = (native.load_library(src, native.nvcc(), native.NVCC_FLAGS, verbose)
-                      for src in ("flat_spheres.cu", "chunk_scan.cu"))
+        flat = native.load_library("flat_spheres.cu", native.nvcc(),
+                                   native.NVCC_FLAGS, verbose)
         for fn, argtypes in (
                 (flat.flat_sphere_closest_hit, [p, i, p, p, p, p, i, p, p, p, p]),
-                (flat.flat_sphere_any_hit, [p, i, p, p, p, p, p, i, p, p]),
-                (scan.scan_sphere_closest_hit, [p, p, i, p, p, p, p, i, p, p, p, p])):
+                (flat.flat_sphere_any_hit, [p, i, p, p, p, p, p, i, p, p])):
             fn.argtypes, fn.restype = argtypes, i
-        _libs.update(flat=flat, scan=scan)
+        _libs.update(flat=flat)
     return _libs
 
 
@@ -109,16 +109,6 @@ def _stream(x):
 def _check_cuda(o):
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
-
-
-def _check_table(packed, n_chunks, o, d, excl_idx, lane_args):
-    """K8's launch checks: K1-K4's (device, dtype, shape, contiguity, chunk
-    count), and the table's 16-byte alignment (the kernel reads slots as
-    float4)."""
-    ST._check_launch(packed, n_chunks, o, d, excl_idx, lane_args)
-    if packed.tris.data_ptr() % 16:
-        raise ValueError("the table must be 16-byte aligned (the kernel "
-                         "reads slots as float4)")
 
 
 def closest_hit_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
@@ -136,25 +126,13 @@ def closest_hit_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
 
 def closest_hit_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
                         t_init):
-    """K8: closest small-sphere hit per lane by the linear culled-chunk
-    scan; the contract of closest_hit_chunked, sphere ids as packed."""
+    """K8: closest small-sphere hit per lane over the chunked table; the
+    contract of closest_hit_chunked, sphere ids as packed.  On the card, the
+    closest-hit walk of ps.nodes (n_chunks is checked, not read)."""
     if o.device.type == "cpu":
         return ST.closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
-    _check_cuda(o)
-    _check_table(ps, n_chunks, o, d, excl_idx, [("t_init", t_init, torch.float32)])
-    n = o.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    gid = torch.empty(n, dtype=torch.int32, device=o.device)
-    ent = torch.empty(n, dtype=torch.int32, device=o.device)
-    if n == 0:
-        return t, gid, ent
-    err = build_kernels()["scan"].scan_sphere_closest_hit(
-        ps.tris.data_ptr(), ps.chunk_meta.data_ptr(), n_chunks,
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
-        t.data_ptr(), gid.data_ptr(), ent.data_ptr(), _stream(o))
-    ST._raise_on(err, "scan_sphere_closest_hit")
-    LAUNCHES["scan_sphere_closest_hit"] += 1
-    return t, gid, ent
+    return ST.walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
+                               "scan_sphere_closest_hit")
 
 
 def occludes_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,

@@ -25,8 +25,9 @@ agree bit for bit.
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises -- it never falls back.  Each
 wrapper counts its kernel launches in ``LAUNCHES``; ``ops/chunk_scan.py``'s
-K9 launches the any-hit walk through ``walk_any_hit`` and counts it in its
-own module's ``LAUNCHES``, not here.  The kernels are built
+K8 and K9 launch the closest-hit and any-hit walks through
+``walk_closest_hit`` and ``walk_any_hit`` and count them in their own
+module's ``LAUNCHES``, not here.  The kernels are built
 with ``nvcc`` at first use into ``build/`` beside the package and loaded
 with ``ctypes``.
 """
@@ -385,6 +386,16 @@ def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
     f32.  The kernel walks ps.nodes (n_chunks is checked, not read)."""
     if o.device.type == "cpu":
         return closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
+    return walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
+                            "sphere_closest_hit")
+
+
+def walk_closest_hit(ps: PackedSpheres, n_chunks: int, o, d, excl_idx, t_init,
+                     launches: dict, key: str):
+    """Launch the closest-hit walk on CUDA tensors (checks first; raises,
+    never falls back) and add one to launches[key] where it launches: the
+    walk of closest_hit_spheres (K1) and of chunk_scan.closest_hit_spheres
+    (K8), each counted in its own module's LAUNCHES."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_launch(ps, n_chunks, o, d, excl_idx,
@@ -403,8 +414,8 @@ def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
         t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
-    _raise_on(err, "sphere_closest_hit")
-    LAUNCHES["sphere_closest_hit"] += 1
+    _raise_on(err, key)
+    launches[key] += 1
     return t, gid, ent
 
 

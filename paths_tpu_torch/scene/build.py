@@ -45,6 +45,7 @@ from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.scene import desc as D
+from paths_tpu_torch.scene.hdr_loader import load_hdr
 from paths_tpu_torch.scene.models import ModelLibrary
 from paths_tpu_torch.scene.types import SceneArrays, SceneStatic
 
@@ -149,15 +150,17 @@ def _mesh_triangles(mesh: D.MeshD, model, ent: int) -> dict:
 
 def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
     """Returns (static, scene_arrays, camera) on ``device`` (default cuda;
-    raises without a CUDA device unless device="cpu").  Model files resolve
-    against the working directory, the scene's directory and its parent.
+    raises without a CUDA device unless device="cpu").  Model files and an
+    HDRI sky's image resolve against the working directory, the scene's
+    directory and its parent.
 
     bvh_threshold: None sends meshes of more than 64 triangles to the
     triangle kernels; an integer sends more triangles than that to the BVH
     route and at most that many to the scan (the reference's rule on the
     CPU, where its default is 32768)."""
     device = resolve_device(device)
-    library = ModelLibrary(search_dirs=[".", sd.base_dir, os.path.dirname(sd.base_dir)])
+    search_dirs = [".", sd.base_dir, os.path.dirname(sd.base_dir)]
+    library = ModelLibrary(search_dirs=search_dirs)
     for name, filepath in sd.models.items():
         library.declare(name, filepath)
     sph_center, sph_radius, sph_ent = [], [], []
@@ -298,7 +301,14 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
         sky_type, sky_arr = SK.gradient(sb.overhead_colour.tolist(),
                                         sb.horizon_colour.tolist(), device)
     elif sb.kind == "hdri":
-        sky_type, sky_arr = SK.hdri(sb.filename, device)
+        path = sb.filename
+        if not os.path.exists(path):
+            for d in search_dirs:
+                cand = os.path.join(d, sb.filename)
+                if os.path.exists(cand):
+                    path = cand
+                    break
+        sky_type, sky_arr = SK.hdri(load_hdr(path), device)
     else:
         raise ValueError(f"Unknown skybox kind {sb.kind}")
 

@@ -32,6 +32,7 @@ from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops.packet_traverse import PackedBvh
 from paths_tpu_torch.ops.sphere_traverse import PackedSpheres
 from paths_tpu_torch.ops.tri_traverse import REFERENCE_FIELDS, PackedTris
+from paths_tpu_torch import sky as SK
 from paths_tpu_torch.sky import Sky
 
 
@@ -128,6 +129,10 @@ class SceneStatic:
     use_bvh: bool = False
     # Bounce cap (trace.rs:14 caps `loops > 10` -> 11 iterations).
     max_bounces: int = 10
+    # Environment NEE: importance-sample the HDRI sky for direct light at
+    # every bounce (sky.sample_env), with a miss collecting the sky only
+    # after a specular bounce.  No effect on flat and gradient skies.
+    env_nee: bool = False
 
     @property
     def has_spheres(self) -> bool:
@@ -150,9 +155,12 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
     numpy: ``static_fields`` is its SceneStatic as a dict (fields the port
     has no counterpart for are ignored), ``arrays`` maps each SceneArrays
     field name to an array, with ``sky.colour_a``/``sky.colour_b`` for the
-    sky, ``psph.tris``/``psph.chunk_meta`` for the packed sphere table and
-    ``ptris.tris``/``ptris.chunk_meta``/``ptris.tri_ent`` for the packed
-    triangle table (the reference's replicated table is not read) and
+    sky and, when given, ``sky.image``/``sky.env_cdf``/``sky.env_inv_pdf``
+    (an HDRI sky's image and tables; without them, the flat and gradient
+    skies' 1x1 stand-ins), ``psph.tris``/``psph.chunk_meta`` for the
+    packed sphere table and ``ptris.tris``/``ptris.chunk_meta``/
+    ``ptris.tri_ent`` for the packed triangle table (the reference's
+    replicated table is not read) and
     ``bvh.<field>`` for the reference's BVH arrays (node_min, node_max,
     hit_link, miss_link, prim_start, prim_count), from which ``pbvh``, the
     K6 table, is packed with the scene's f32 triangles (the scene build
@@ -180,8 +188,10 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
     fields = {}
     for name in SceneArrays._fields:
         if name == "sky":
+            env = ([tensor(arrays[f"sky.{f}"]) for f in Sky._fields[2:]]
+                   if "sky.image" in arrays else SK.no_env(device))
             fields[name] = Sky(tensor(arrays["sky.colour_a"]),
-                               tensor(arrays["sky.colour_b"]))
+                               tensor(arrays["sky.colour_b"]), *env)
         elif name == "psph":
             fields[name] = (
                 PackedSpheres(tensor(arrays["psph.tris"]),

@@ -374,19 +374,20 @@ def test_flat_split_emulation_equals_plain(stress_table, case, group, anyhit):
 
 def test_launch_checks_reject_bad_inputs(spheres, stress_table):
     """The checks a CUDA launch runs first: device, dtype, shape,
-    contiguity, the chunk count, the table's alignment (chunk scan) and row
-    count (flat)."""
+    contiguity, the chunk count, the table's alignment (K8's launch of K1's
+    walk: sphere_traverse's launch and tree checks) and row count (flat)."""
     _, (ps, n, _) = _sphere_tables(spheres, CS.SPH_ROWS_PER_CHUNK)
     o, d, excl, t_init, excl_ent, _ = _torch(*spheres[1])
     seed = [("t_init", t_init, torch.float32)]
-    CS._check_table(ps, n, o, d, excl, seed)  # well-formed: no raise
+    ST._check_launch(ps, n, o, d, excl, seed)  # well-formed: no raise
+    ST._check_nodes(ps, o.device)
     with pytest.raises(TypeError):
-        CS._check_table(ps, n, o, d, excl.long(), seed)
+        ST._check_launch(ps, n, o, d, excl.long(), seed)
     with pytest.raises(ValueError):
-        CS._check_table(ps, ps.chunk_meta.shape[0] + 1, o, d, excl, seed)
+        ST._check_launch(ps, ps.chunk_meta.shape[0] + 1, o, d, excl, seed)
     misaligned = ps._replace(tris=torch.zeros(ps.tris.numel() + 1)[1:].view(-1, 128))
     with pytest.raises(ValueError, match="aligned"):
-        CS._check_table(misaligned, n, o, d, excl, seed)
+        ST._check_nodes(misaligned, o.device)
 
     table = stress_table[0]
     ent = [("excl_ent", excl_ent, torch.int32)]

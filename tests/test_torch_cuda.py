@@ -282,7 +282,7 @@ def test_tri_wrapper_refuses_a_table_without_hierarchy(dev):
         TT.occludes_tris(pt._replace(nodes=pt.nodes.cpu()), nc, o, d, excl, excl_ent, t_max)
 
 
-# ---- K5 (flat spheres), K8 (linear chunk scan), K7 and K9 (walks) ----
+# ---- K5 (flat spheres), K7, K8 and K9 (walks of their own tables) ----
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "any"])
@@ -340,14 +340,38 @@ def test_flat_kernel_holds_exact_ties(dev):
 
 @pytest.mark.cuda
 def test_scan_sphere_kernels_match_plain(dev):
+    """K8 and K9's sphere form on a 16-row table: equal to the plain
+    versions; a K8 call adds one to chunk_scan's count and none to
+    sphere_traverse's, although it launches K1's walk."""
     ps, nc, (o, d, excl, t_init, excl_ent, t_max) = _scene_and_rays(
         dev, seed=3, rows=CS.SPH_ROWS_PER_CHUNK)
+    before, walks = dict(CS.LAUNCHES), dict(ST.LAUNCHES)
     got = CS.closest_hit_spheres(ps, nc, o, d, excl, t_init)
+    torch.cuda.synchronize()
+    assert CS.LAUNCHES["scan_sphere_closest_hit"] == before["scan_sphere_closest_hit"] + 1
+    assert ST.LAUNCHES == walks
     for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
         assert torch.equal(g, w)
     occ = CS.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
     assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
     assert int((got[0] < 3.4e38).sum()) > N // 8 and int(occ.sum()) > N // 8
+
+
+@pytest.mark.cuda
+def test_any_hit_environment_query_matches_plain(dev):
+    """The environment NEE query's arguments: t_max BIG on every lane and no
+    entity excluded (excl_ent -1).  K2 and K9's sphere form equal the plain
+    versions, and a lane is occluded iff its ray meets any sphere other than
+    its own."""
+    for rows in (ST.SPH_ROWS_PER_CHUNK, CS.SPH_ROWS_PER_CHUNK):
+        ps, nc, (o, d, excl, _, _, _) = _scene_and_rays(dev, seed=6, rows=rows)
+        t_max = torch.full((N,), 3.4e38, device=dev)
+        excl_ent = torch.full((N,), -1, dtype=torch.int32, device=dev)
+        want = ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max)
+        assert torch.equal(ST.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max), want)
+        assert torch.equal(CS.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max), want)
+        hit = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_max)[0] < 3.4e38
+        assert torch.equal(want, hit) and int(want.sum()) > N // 8
 
 
 @pytest.mark.cuda
@@ -443,32 +467,38 @@ def test_chunked_tri_walks_hold_exact_ties(dev, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 31, 65537])
 def test_chunked_sphere_walk_holds_exact_ties(dev, n):
-    """K9's sphere form on the pole pairs packed at K9's 16 rows a chunk, at
-    n lanes, with t_max at the exact nearest hit on some lanes and 0 on
-    others: equal to the plain version bit for bit, each launch counted once
-    in chunk_scan.LAUNCHES and not as K2."""
+    """K8 and K9's sphere form on the pole pairs packed at 16 rows a chunk,
+    at n lanes, with t_init and t_max at the exact nearest hit on some lanes
+    and t_max 0 on others: equal to the plain versions bit for bit (K8's
+    exact ties go to the first slot in table order), each launch counted
+    once in chunk_scan.LAUNCHES and not as K1/K2."""
     (c, r, ent), lanes = sphere_ties_case()
     ps, nc, _ = ST.pack_spheres_chunked(c, r, ent=ent, rows_per_chunk=CS.SPH_ROWS_PER_CHUNK,
                                         device=dev)
     o, d, excl, t_init, excl_ent, t_max = _repeat(
         [torch.as_tensor(np.array(a), device=dev) for a in lanes], n)
     first = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
-    _, t_max = _exact_seeds(first, t_init, t_max)
+    t_init, t_max = _exact_seeds(first, t_init, t_max)
     before, walks = dict(CS.LAUNCHES), dict(ST.LAUNCHES)
+    got = CS.closest_hit_spheres(ps, nc, o, d, excl, t_init)
+    for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
+        assert torch.equal(g, w)
     occ = CS.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
     assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
     torch.cuda.synchronize()
+    assert CS.LAUNCHES["scan_sphere_closest_hit"] == before["scan_sphere_closest_hit"] + 1
     assert CS.LAUNCHES["scan_sphere_any_hit"] == before["scan_sphere_any_hit"] + 1
     assert ST.LAUNCHES == walks
     if n > 1000:
         assert int(occ.sum()) > n // 8 and int((~occ).sum()) > n // 8
+        assert int((got[0] < 3.4e38).sum()) > n // 8
 
 
 @pytest.mark.cuda
 def test_chunked_walks_on_one_row_tables(dev):
-    """K7 and K9 on the smallest tables the packers make: five triangles in
-    one row (a one-node hierarchy) and one sphere: equal to the plain
-    versions bit for bit."""
+    """K7, K8 and K9 on the smallest tables the packers make: five
+    triangles in one row (a one-node hierarchy) and one sphere: equal to the
+    plain versions bit for bit."""
     rng = np.random.default_rng(9)
     c = rng.uniform(-1, 1, (5, 3))
     v0, v1, v2 = (c + rng.uniform(-0.5, 0.5, (5, 3)) for _ in range(3))
@@ -497,12 +527,17 @@ def test_chunked_walks_on_one_row_tables(dev):
                        TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max))
     occ = CS.occludes_spheres(ps, sc, o, d, excl, excl_ent, t_max)
     assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
+    s_excl = torch.where(excl > 0, -1, excl).contiguous()  # the sphere's id is 0
+    sph = CS.closest_hit_spheres(ps, sc, o, d, s_excl, t_init)
+    for g, w in zip(sph, ST.closest_hit_spheres_plain(ps.tris, o, d, s_excl, t_init)):
+        assert torch.equal(g, w)
     assert int((got[0] < 3.4e38).sum()) > 0 and int(occ.sum()) > 0
+    assert int((sph[0] < 3.4e38).sum()) > 0
 
 
 @pytest.mark.cuda
 def test_chunked_wrappers_refuse_a_table_without_hierarchy(dev):
-    """K7 and K9 walk their tables' hierarchies: a table without one, or
+    """K7, K8 and K9 walk their tables' hierarchies: a table without one, or
     with it on another device, is refused, never scanned nor run plain."""
     pt, nc, (o, d, excl, t_init, excl_ent, t_max) = _mesh_and_rays(
         dev, 3000, rows=CS.TRI_ROWS_PER_CHUNK)
@@ -513,7 +548,12 @@ def test_chunked_wrappers_refuse_a_table_without_hierarchy(dev):
         CS.occludes_chunked(pt._replace(nodes=None), nc, o, d, excl, excl_ent, t_max)
     with pytest.raises(ValueError):
         CS.closest_hit_chunked(pt._replace(nodes=pt.nodes.cpu()), nc, o, d, excl, t_init)
-    ps, sc, (o, d, excl, _, excl_ent, t_max) = _scene_and_rays(dev, rows=CS.SPH_ROWS_PER_CHUNK)
+    ps, sc, (o, d, excl, t_init, excl_ent, t_max) = _scene_and_rays(
+        dev, rows=CS.SPH_ROWS_PER_CHUNK)
+    with pytest.raises(ValueError, match="tree"):
+        CS.closest_hit_spheres(ps._replace(nodes=None), sc, o, d, excl, t_init)
+    with pytest.raises(ValueError):
+        CS.closest_hit_spheres(ps._replace(nodes=ps.nodes.cpu()), sc, o, d, excl, t_init)
     with pytest.raises(ValueError, match="tree"):
         CS.occludes_spheres(ps._replace(nodes=None), sc, o, d, excl, excl_ent, t_max)
     with pytest.raises(ValueError):

@@ -51,6 +51,7 @@ _EXPECTED = {
     "paths_tpu_torch.scene.obj_loader", "paths_tpu_torch.scene.ply_loader",
     "paths_tpu_torch.scene.yaml_loader", "paths_tpu_torch.scene.build",
     "paths_tpu_torch.integrator", "paths_tpu_torch.ops.packet_traverse",
+    "paths_tpu_torch.sky", "paths_tpu_torch.scene.hdr_loader",
 }
 
 

@@ -35,6 +35,7 @@ from paths_tpu_torch import render as TR
 from paths_tpu_torch.ops import chunk_scan as TCS
 from paths_tpu_torch.ops import sphere_traverse as TST
 from paths_tpu_torch.sampling import hashing as TH
+from paths_tpu_torch.scene import desc as TD
 from paths_tpu_torch.scene import build as TB
 from paths_tpu_torch.scene.stress import (
     STRESS_LIGHT,
@@ -69,8 +70,8 @@ def _as_numpy(jscene):
     out = {}
     for name in SceneArrays._fields:
         if name == "sky":
-            out["sky.colour_a"] = np.asarray(jscene.sky.colour_a)
-            out["sky.colour_b"] = np.asarray(jscene.sky.colour_b)
+            for f in jscene.sky._fields:  # the colours, image and tables
+                out[f"sky.{f}"] = np.asarray(getattr(jscene.sky, f))
         elif name == "psph":
             if jscene.psph is not None:
                 out["psph.tris"] = np.asarray(jscene.psph.tris)
@@ -133,6 +134,41 @@ def _lanes(W, H):
     return (pix % W).astype(np.int32), (pix // W).astype(np.int32), pix
 
 
+def _hdri_lit_stress(sd, skybox):
+    """Configuration (b): the lit stress scene under the bundled sunrise HDRI
+    (``skybox``: either package's SkyboxD class)."""
+    sd.skybox = skybox(kind="hdri",
+                       filename=os.path.join(REPO, "scenes", "assets", "sunrise.hdr"))
+    return sd
+
+
+@pytest.fixture(scope="module")
+def hdri_lit_stress():
+    """Configuration (b) at the test size: the reference's build with the
+    Pallas path forced and env_nee on."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PATHS_TPU_FORCE_PALLAS", "1")
+    try:
+        jstatic, jscene, jcam = jax_build(_hdri_lit_stress(_jax_lit_stress(), JD.SkyboxD))
+    finally:
+        mp.undo()
+    assert jstatic.pallas_sph_chunks > 0 and jstatic.sky_type == 2
+    return dataclasses.replace(jstatic, env_nee=True), jscene, jcam
+
+
+def test_build_scene_hdri_matches_reference(hdri_lit_stress):
+    """The port's build of configuration (b) carries the reference's HDRI
+    image and tables bit for bit."""
+    jstatic, jscene, _ = hdri_lit_stress
+    static, scene, _ = TB.build_scene(
+        _hdri_lit_stress(generate_lit_stress_scene(N_SPHERES, seed=0), TD.SkyboxD),
+        device="cpu")
+    assert static.sky_type == jstatic.sky_type and not static.env_nee
+    for f in jscene.sky._fields:
+        np.testing.assert_array_equal(getattr(scene.sky, f).numpy(),
+                                      np.asarray(getattr(jscene.sky, f)), err_msg=f)
+
+
 @pytest.fixture(scope="module")
 def mixed(tmp_path_factory):
     """The mixed sphere + mesh scene (40 spheres, a 128-triangle grid, a
@@ -186,6 +222,26 @@ def _path_step_parity(jstatic, jscene, jcam):
 
 def test_path_step_matches_reference(lit_stress):
     _path_step_parity(*lit_stress[0])
+
+
+def test_path_step_env_nee_matches_reference(hdri_lit_stress, monkeypatch):
+    """One bounce of configuration (b) with environment NEE: the miss rule
+    and the second shadow query (t_max BIG, no entity excluded) through the
+    any-hit walk's plain version, against the reference's interpret-mode
+    kernels."""
+    calls = []
+    occludes = TST.occludes_spheres
+
+    def spy(ps, nc, o, d, excl, excl_ent, t_max):
+        calls.append((excl_ent.clone(), t_max.clone()))
+        return occludes(ps, nc, o, d, excl, excl_ent, t_max)
+
+    monkeypatch.setattr(TST, "occludes_spheres", spy)
+    static = _path_step_parity(*hdri_lit_stress)[0]
+    assert static.env_nee and static.sky_type == 2
+    assert len(calls) == 2  # the light's NEE, then the environment's
+    excl_ent, t_max = calls[1]
+    assert bool((t_max == TI.BIG).all()) and bool((excl_ent == -1).all())
 
 
 def test_path_step_mixed_matches_reference(mixed):
@@ -335,6 +391,39 @@ def test_ct_demo_golden():
     got = TR.render_image(static, scene, cam, W, H, spp=2, seed=0)
     assert got.shape == want.shape and np.isfinite(got).all()
     assert _rel_mse(got, want) < 1e-4
+
+
+def test_env_demo_golden():
+    """scenes/env_demo.yml at the golden settings (tests/make_goldens.py:
+    72x48, 2 spp, max_bounces 4, seed 0) vs the committed reference golden:
+    the HDRI sky read from scenes/assets/sunrise.hdr and looked up on every
+    miss."""
+    want = np.load(os.path.join(REPO, "tests", "goldens", "env_demo.npz"))["img"]
+    sd = load_scene_description(os.path.join(REPO, "scenes", "env_demo.yml"))
+    static, scene, cam = TB.build_scene(sd, device="cpu")
+    assert static.sky_type == 2 and scene.sky.image.shape == (128, 256, 3)
+    static = dataclasses.replace(static, max_bounces=4)
+    W, H = 72, 48
+    got = TR.render_image(static, scene, TC.resize(cam, W, H), W, H, spp=2, seed=0)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert _rel_mse(got, want) < 1e-4
+
+
+def test_cli_env_nee_writes_png(tmp_path):
+    """The CLI takes --env-nee: scenes/env_demo.yml on the CPU at 24x16,
+    1 spp writes a PNG of a finite image, and environment NEE changes the
+    image against the same render without it."""
+    from paths_tpu_torch import cli
+
+    scene = os.path.join(REPO, "scenes", "env_demo.yml")
+    args = [scene, "--cpu", "--size", "24x16", "--spp", "1"]
+    out = str(tmp_path / "env.png")
+    img = cli.main(args + ["--env-nee", "-o", out])
+    assert img.shape == (16, 24, 3) and np.isfinite(img).all() and img.max() > 0
+    with open(out, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    plain = cli.main(args + ["-o", str(tmp_path / "plain.png")])
+    assert not np.array_equal(img, plain)
 
 
 def test_mixed_pallas_golden(tmp_path):
