@@ -109,7 +109,27 @@ Phases, one line each (any failure exits non-zero before the last line):
      the card, its plain version on the CPU; each of the card's K6 queries
      held bit for bit against the plain version on its inputs); and
      scenes/env_demo.yml with environment NEE (the HDRI tables and lookups).
-Then a JSON line of per-kernel results (ms, device_ms, plain_ms and bound_ms at the main
+     On each, phase 8 (c): loss_and_grad of a 48x32 wave on the card and
+     on the CPU, every gradient field finite and equal to rtol 2e-3, atol
+     1e-5;
+  8. gradients on the card (paths_tpu_torch.grad), 720x480, 1 spp: (a)
+     loss_and_grad on the lit stress scene (K1, K2) over all 345,600 lanes
+     against a target rendered with the albedo of its most-seen
+     albedo-reading entity perturbed, in tiles if a probe tile's peak
+     memory says the frame would not fit: the forward and backward times,
+     peak memory and kernel launches of one step, then 10 steps of gradient
+     descent on that albedo, the loss falling at every step to below 10% of
+     its start; (b) doom_standin's kernel route (K3, K4): pixel_gradient
+     with respect to tri_vc0 on a 65,536-lane tile, sum(g * tri_vc0)
+     against a central difference with tri_vc0 scaled by 1 +- 1e-2, rtol
+     2e-2;
+  9. resume and progressive rendering: stress-500 at 720x480, 8 spp whole,
+     and 4 spp checkpointed to a file, loaded and resumed to 8: equal bit
+     for bit; 20 pumps of ProgressiveRenderer at 720x480 (a preview wave,
+     then full waves), frames per second, the camera moved while a wave is
+     in flight and that wave dropped; validate_radiance on every image.
+Then a JSON line of per-kernel results (launches summed over the paths of
+phases 5, 8 (a, b) and 9; ms, device_ms, plain_ms and bound_ms at the main
 path's tile for K1-K6, env_tile_* at configuration (b)'s for K1/K2; at the
 doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
@@ -1536,7 +1556,11 @@ def gpu_vs_cpu(device, route="walk"):
     kernel: the HDRI tables, sample_env and the lookups on the card against
     the CPU).  The images must agree to relative MSE < 1e-4 (the eager
     shading between the queries runs PyTorch's CUDA and CPU operators, whose
-    transcendentals and reductions round differently)."""
+    transcendentals and reductions round differently).  Then phase 8 (c):
+    loss_and_grad of one 48x32 wave (sample 0, against a zero target) on
+    the card and on the CPU, every gradient field finite and equal to
+    GRAD_RTOL / GRAD_ATOL (grads_agree); the card's launches of that
+    gradient are logged, not counted with the main paths'."""
     import numpy as np
 
     from paths_tpu_torch import camera as C
@@ -1547,7 +1571,7 @@ def gpu_vs_cpu(device, route="walk"):
     from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
     PK = _kernel_modules()[3]
-    imgs, held = [], [0]
+    imgs, held, built = [], [0], []
     k6 = PK.closest_hit_packet
 
     def k6_held(pbvh, *args):
@@ -1581,6 +1605,7 @@ def gpu_vs_cpu(device, route="walk"):
                 assert static.sph_chunks > 0 and static.tri_chunks > 0
                 assert static.sph_flat == (route == "flat")
             static = dataclasses.replace(static, max_bounces=3)
+            built.append((static, scene, C.resize(cam, 48, 32)))
             reset_launch_counts()
             if route == "bvh" and dev == device:
                 PK.closest_hit_packet = k6_held
@@ -1600,6 +1625,397 @@ def gpu_vs_cpu(device, route="walk"):
     scene_name = "env_demo --env-nee" if route == "env" else "mixed scene"
     log(f"[gpu-vs-cpu] {scene_name} 48x32 2 spp, {route} route: relative MSE "
         f"{rel:.3e} (< 1e-4), {differ} of {48 * 32} pixels differ{extra}")
+
+    import torch
+
+    from paths_tpu_torch import grad as G
+
+    grads = []
+    for dev, (static, scene, cam) in zip((device, "cpu"), built):
+        lanes = wave_lanes(48, 32, dev)
+        target = torch.zeros((48 * 32, 3), device=dev)
+        reset_launch_counts()
+        grads.append(G.loss_and_grad(static, scene, cam, *lanes, 0, target))
+        if dev == device:
+            counts = launch_counts()
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
+    worst, nonzero = grads_agree(f"{scene_name}, {route} route", g_gpu, g_cpu)
+    log(f"[gpu-vs-cpu] {scene_name} 48x32 1 spp, {route} route: loss_and_grad on the "
+        f"card {float(loss_gpu):.6e}, on the CPU {float(loss_cpu):.6e}; every field of "
+        f"PARAM_FIELDS and SKY_PARAM_FIELDS finite and equal to rtol {GRAD_RTOL}, atol "
+        f"{GRAD_ATOL} ({nonzero} values not zero; largest difference {worst:.3e}); "
+        f"launches {counts}")
+
+
+# ---------------------------------------------------------------- phases 8/9
+
+# Phase 8 (a): the chosen entity's albedo is perturbed by this much per
+# channel (towards the middle of [0, 1]) in the target, and recovered by
+# GRAD_STEPS steps of gradient descent; the loss must fall at every step and
+# end below GRAD_LOSS_END of its start.  The first step is taken at
+# GRAD_LR0; the learning rate of the others is GRAD_RATE over the loss's
+# curvature along that first step (a secant: (s . y) / (s . s) for the step
+# s and the change of gradient y), so that each removes about GRAD_RATE of
+# the albedo's error.  A fixed rate would not do: 1 spp frames at 90x60 and
+# 180x120 on the CPU gave curvatures 1.22 and 0.35 (a few bright lanes
+# carry the loss; scripts/grad_cpu_study.py), and a rate near 1 / curvature
+# drives the loss to its rounding floor in a step or two, where it need not
+# fall any more.
+GRAD_DELTA = 0.3
+GRAD_STEPS = 10
+GRAD_LR0 = 0.1
+GRAD_RATE = 0.3
+GRAD_LOSS_END = 0.1
+# A gradient tile may take at most this share of the card's free memory,
+# as estimated from a probe tile of GRAD_PROBE lanes: the frame is split
+# into tiles when the whole would not fit.
+GRAD_MEMORY_SHARE = 0.5
+GRAD_PROBE = 16384
+# Phase 8 (b): central-difference step (a relative scale of tri_vc0) and
+# tolerance; phase 8 (c): the reference's bound between its backends
+# (tests/test_grad.py test_forced_pallas_grads_match_xla).
+FD_EPS = 1e-2
+FD_RTOL = 2e-2
+GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def wave_lanes(width, height, device, n=None):
+    """(px, py, pixel_id, sample_id) of the first n lanes (every pixel when
+    None) in the renderer's tiled pixel order, sample 0 each."""
+    import torch
+
+    from paths_tpu_torch.render import tiled_pixel_order
+
+    pid = torch.as_tensor(tiled_pixel_order(width, height)[:n].astype("int64"),
+                          device=device)
+    return ((pid % width).to(torch.int32), (pid // width).to(torch.int32), pid,
+            torch.zeros_like(pid))
+
+
+def albedo_entity(static, scene, cam, lanes):
+    """The entity seen by the most primary rays among those that are not
+    lights and whose material reads its albedo (Lambertian, gloss,
+    Cook-Torrance): (entity, its lanes, its material type)."""
+    import numpy as np
+    import torch
+
+    from paths_tpu_torch import integrator as I
+    from paths_tpu_torch import materials as M
+    from paths_tpu_torch.render import gen_camera_rays
+
+    o, d, _ = gen_camera_rays(cam, *lanes, 0)
+    none = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+    found, _, _, ent, _ = I.intersect_brief(static, scene, o, d, none, none)
+    counts = torch.bincount(ent[found].long(), minlength=static.n_entities).cpu().numpy()
+    mtype = scene.mat_mtype.cpu().numpy()
+    reads = (np.isin(mtype, (M.LAMBERTIAN, M.GLOSS, M.COOK_TORRANCE))
+             & ~scene.ent_is_light.cpu().numpy() & ~scene.mat_albedo_vertex.cpu().numpy())
+    e = int(np.argmax(np.where(reads, counts, -1)))
+    return e, int(counts[e]), int(mtype[e])
+
+
+def grad_tiles(static, scene, cam, lanes, target, tile, entity, timed=False):
+    """The l2 loss of the whole wave and its gradient with respect to
+    mat_albedo[entity], tile by tile: loss_and_grad on each tile of `tile`
+    lanes, each weighted by n_tile / N (the loss is a mean).  With timed,
+    the forward and the backward of each tile are run and timed apart (on
+    leaf copies of the parameters, as loss_and_grad runs them): returns
+    (loss, grad, forward s, backward s); else (loss, grad)."""
+    import torch
+
+    from paths_tpu_torch import grad as G
+
+    device = cam.location.device
+    n = lanes[0].shape[0]
+    loss, grad, t_fwd, t_bwd = 0.0, 0.0, 0.0, 0.0
+    for a in range(0, n, tile):
+        sub = [x[a:a + tile] for x in lanes]
+        w = sub[0].shape[0] / n
+        if timed:
+            params = G.leaf_params(G.get_params(scene))
+            _sync(device)
+            t = time.perf_counter()
+            l_t = G.l2_loss(static, params, scene, cam, *sub, 0, target[a:a + tile])
+            _sync(device)
+            t_fwd += time.perf_counter() - t
+            t = time.perf_counter()
+            leaves = ([params[f] for f in G.PARAM_FIELDS]
+                      + [params["sky"][f] for f in G.SKY_PARAM_FIELDS])
+            grads = torch.autograd.grad(l_t, leaves, allow_unused=True)
+            _sync(device)
+            t_bwd += time.perf_counter() - t
+            g_t = grads[G.PARAM_FIELDS.index("mat_albedo")]
+        else:
+            l_t, g = G.loss_and_grad(static, scene, cam, *sub, 0, target[a:a + tile])
+            g_t = g["mat_albedo"]
+        loss += float(l_t.detach()) * w
+        grad = grad + g_t[entity].detach() * w
+    return (loss, grad, t_fwd, t_bwd) if timed else (loss, grad)
+
+
+def gradient_step(device, width=720, height=480, steps=GRAD_STEPS, probe=GRAD_PROBE):
+    """Phase 8 (a): loss_and_grad on lit stress-500 at a full frame, one
+    sample a pixel, against a target rendered with the albedo of one entity
+    perturbed (the entity with the most pixels among those whose material
+    reads albedo); the first step timed (forward and backward apart), its
+    peak memory and kernel launches logged; `steps` steps of gradient
+    descent on that albedo in all, the loss falling at every step.  Returns the
+    launch counts of the timed step."""
+    import numpy as np
+    import torch
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import grad as G
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_lit_stress_scene
+
+    cuda = torch.device(device).type == "cuda"
+    static, scene, cam = build_scene(generate_lit_stress_scene(500), device=device)
+    cam = C.resize(cam, width, height)
+    lanes = wave_lanes(width, height, device)
+    n = lanes[0].shape[0]
+    e, seen, mtype = albedo_entity(static, scene, cam, lanes)
+    start = scene.mat_albedo[e].clone()
+    delta = torch.where(start < 0.5, GRAD_DELTA, -GRAD_DELTA)
+    goal = start + delta
+    params = G.get_params(scene)
+    params["mat_albedo"] = scene.mat_albedo.clone()
+    params["mat_albedo"][e] = goal
+    with torch.no_grad():
+        target = G.render_with_params(static, scene, params, cam, *lanes, 0)
+    log(f"[grad] lit stress-500 {width}x{height}, 1 spp, {n} lanes, "
+        f"{static.max_bounces + 1} bounce iterations at most: entity {e} "
+        f"(material type {mtype}, {seen} primary-ray lanes, {100 * seen / n:.1f}% "
+        f"of the frame); albedo {start.tolist()} -> target {goal.tolist()}")
+
+    # The tile: a probe step's peak memory per lane against the free memory.
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grad_tiles(static, scene, cam, [x[:probe] for x in lanes], target[:probe],
+                   probe, e)
+        per_lane = (torch.cuda.max_memory_allocated() - base) / probe
+        free = torch.cuda.mem_get_info()[0]
+        tile = min(n, int(GRAD_MEMORY_SHARE * free // per_lane) // 1024 * 1024)
+        log(f"[grad] probe of {probe} lanes: {per_lane / 1024:.1f} KiB a lane at peak; "
+            f"{free / 2**30:.1f} GiB free, so tiles of {tile} lanes: "
+            f"{-(-n // tile)} tile(s), each tile's gradient weighted by n_tile / {n}")
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        tile = n
+
+    reset_launch_counts()
+    loss0, g0, t_fwd, t_bwd = grad_tiles(static, scene, cam, lanes, target, tile, e,
+                                         timed=True)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    log(f"[grad] loss_and_grad, lit stress-500, {n} lanes in {-(-n // tile)} tile(s): "
+        f"forward {t_fwd:.2f} s, backward {t_bwd:.2f} s ({t_bwd / t_fwd:.2f}x the "
+        f"forward); peak memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); "
+        f"kernel launches of the step {counts}")
+    for k in ("sphere_closest_hit", "sphere_any_hit"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched in the gradient step")
+    if not (np.isfinite(loss0) and bool(torch.isfinite(g0).all())):
+        raise AssertionError(f"non-finite loss or gradient: {loss0}, {g0.tolist()}")
+
+    losses = []
+    albedo, lr, first = start.clone(), GRAD_LR0, None
+    t = time.perf_counter()
+    for i in range(steps):
+        params = G.get_params(scene)
+        params["mat_albedo"] = scene.mat_albedo.clone()
+        params["mat_albedo"][e] = albedo
+        # The first step is the timed one's (the same albedo).
+        loss, g = (loss0, g0) if i == 0 else grad_tiles(
+            static, G.with_params(scene, params), cam, lanes, target, tile, e)
+        losses.append(loss)
+        if i == 1:  # the curvature along the first step sets the rate
+            s_, y_ = albedo - first[0], g - first[1]
+            curvature = float((s_ * y_).sum() / (s_ * s_).sum())
+            if not curvature > 0:
+                raise AssertionError(f"the loss is not convex along the first step "
+                                     f"(curvature {curvature})")
+            lr = GRAD_RATE / curvature
+        first = first or (albedo, g)
+        albedo = albedo - lr * g
+    params["mat_albedo"][e] = albedo
+    with torch.no_grad():
+        losses.append(float(G.l2_loss(static, params, scene, cam, *lanes, 0, target)))
+    dt = time.perf_counter() - t
+    log(f"[grad] {steps} SGD steps on albedo[{e}], learning rate {GRAD_LR0} for the "
+        f"first, then {lr:.4f} (= {GRAD_RATE} / the curvature {curvature:.4f} along "
+        "the first step): loss "
+        + ", ".join(f"{v:.4e}" for v in losses)
+        + f" ({losses[-1] / losses[0]:.2e} of the start); albedo {albedo.tolist()} "
+        f"(target {goal.tolist()}); {dt:.1f} s")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the loss did not fall at every step: {losses}")
+    if not losses[-1] < GRAD_LOSS_END * losses[0]:
+        raise AssertionError(f"the loss ended at {losses[-1] / losses[0]:.3f} of its "
+                             f"start, not below {GRAD_LOSS_END}")
+    return counts
+
+
+def vertex_colour_fd(device, width=720, height=480, lanes_n=SUBSET):
+    """Phase 8 (b): on doom_standin's kernel route (K3, K4), pixel_gradient
+    with respect to tri_vc0 on one tile, its directional derivative
+    sum(g * tri_vc0) held against a central difference of the mean radiance
+    with tri_vc0 scaled by 1 +- FD_EPS (the same seed).  Returns the launch
+    counts of the gradient."""
+    import torch
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import grad as G
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
+
+    static, scene, cam = build_scene(load_scene_description(DOOM), device=device)
+    if not static.tri_chunks:
+        raise AssertionError("doom_standin did not take the kernel route")
+    cam = C.resize(cam, width, height)
+    lanes = wave_lanes(width, height, device, lanes_n)
+    reset_launch_counts()
+    t = time.perf_counter()
+    g = G.pixel_gradient(static, scene, cam, *lanes, 0, "tri_vc0")
+    _sync(device)
+    dt = time.perf_counter() - t
+    counts = launch_counts()
+    for k in ("tri_closest_hit", "tri_any_hit"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched in doom's gradient")
+    directional = float((g * scene.tri_vc0).sum())
+
+    def mean_radiance(scale):
+        params = G.get_params(scene)
+        params["tri_vc0"] = params["tri_vc0"] * scale
+        with torch.no_grad():
+            return float(G.render_with_params(static, scene, params, cam, *lanes, 0).mean())
+
+    fd = (mean_radiance(1 + FD_EPS) - mean_radiance(1 - FD_EPS)) / (2 * FD_EPS)
+    rel = abs(directional - fd) / abs(fd)
+    log(f"[grad] doom_standin kernel route, {lanes[0].shape[0]} lanes: pixel_gradient "
+        f"wrt tri_vc0 in {dt:.2f} s ({int((g != 0).any(1).sum())} of {g.shape[0]} "
+        f"triangles reached); sum(g * tri_vc0) {directional:.6e} against the central "
+        f"difference {fd:.6e} (eps {FD_EPS}): relative difference {rel:.2e} "
+        f"(< {FD_RTOL}); launches {counts}")
+    if not (bool(torch.isfinite(g).all()) and directional > 0 and rel < FD_RTOL):
+        raise AssertionError(f"doom tri_vc0 gradient: {directional} against {fd}")
+    return counts
+
+
+def grads_agree(label, got, want):
+    """Phase 8 (c): every gradient field of the card's loss_and_grad finite
+    and equal to the CPU's to GRAD_RTOL / GRAD_ATOL.  Returns (largest
+    absolute difference, values compared that are not zero)."""
+    import numpy as np
+
+    from paths_tpu_torch import grad as G
+
+    worst, nonzero = 0.0, 0
+    for name in G.PARAM_FIELDS + G.SKY_PARAM_FIELDS:
+        a = (got["sky"] if name in G.SKY_PARAM_FIELDS else got)[name].cpu().numpy()
+        b = (want["sky"] if name in G.SKY_PARAM_FIELDS else want)[name].cpu().numpy()
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            raise AssertionError(f"{label}: non-finite gradient in {name}")
+        np.testing.assert_allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=f"{label}: card vs CPU gradient of {name}")
+        worst = max(worst, float(np.abs(a - b).max(initial=0.0)))
+        nonzero += int((b != 0).sum())
+    return worst, nonzero
+
+
+def resume_and_progressive(device, width=720, height=480, spp=8, pumps=20):
+    """Phase 9: stress-500 rendered whole at `spp` and again as spp/2,
+    checkpointed to a file, loaded and resumed to spp: bit for bit equal
+    (batches of spp/2 both ways).  Then `pumps` pumps of ProgressiveRenderer
+    (a preview wave, then full waves of one sample), the camera moved while
+    a wave is in flight halfway, that stale wave dropped; frames per
+    second.  validate_radiance on every image.  Returns the launch counts
+    of the two paths."""
+    import numpy as np
+    import torch
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from paths_tpu_torch.debug import validate_radiance
+    from paths_tpu_torch.progressive import ProgressiveRenderer
+    from paths_tpu_torch.render import Estimator, render_image
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_stress_scene
+
+    static, scene, cam = build_scene(generate_stress_scene(500), device=device)
+    cam = C.resize(cam, width, height)
+    half = spp // 2
+
+    def resumed():
+        t = time.perf_counter()
+        whole = render_image(static, scene, cam, width, height, spp=spp, seed=0,
+                             sample_batch=half)
+        t_whole = time.perf_counter() - t
+        est = Estimator(width, height)
+        render_image(static, scene, cam, width, height, spp=half, seed=0, est=est,
+                     sample_batch=half)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "ck.npz")
+            save_checkpoint(path, est, half, 0)
+            est2, start, seed = load_checkpoint(path)
+        again = render_image(static, scene, cam, width, height, spp=spp, seed=seed,
+                             est=est2, start_sample=start, sample_batch=half)
+        return whole, again, t_whole
+
+    counts, (whole, again, t_whole) = drive("stress-500 resumed render", resumed,
+                                            ["sphere_closest_hit"])
+    differ = int((whole != again).any(-1).sum())
+    log(f"[resume] stress-500 {width}x{height}: {spp} spp whole in {t_whole:.2f} s; "
+        f"{half} spp, checkpointed, loaded and resumed to {spp}: {differ} of "
+        f"{width * height} pixels differ from the whole render")
+    if differ:
+        raise AssertionError("the resumed render is not bit-identical to the whole one")
+
+    def progressive():
+        r = ProgressiveRenderer(static, scene, cam, width, height)
+        n_preview = len(r._prev_idx)
+        t = time.perf_counter()
+        for i in range(pumps):
+            r.pump()
+            if i == pumps // 2 - 1:
+                # A wave is in flight: the move makes it stale.
+                r.set_camera(cam.location.cpu().numpy() + [0.5, 0.0, 0.0],
+                             cam.rot.cpu().numpy())
+                moved = i
+            elif i == pumps // 2 and r.estimator.count.sum() != 0:
+                raise AssertionError("the stale wave was not dropped")
+            elif i == pumps // 2 + 1 and r.estimator.count.sum() != n_preview:
+                raise AssertionError("the new epoch's preview did not land")
+        dt = time.perf_counter() - t
+        want = n_preview + (pumps - moved - 3) * width * height
+        if r.estimator.count.sum() != want:
+            raise AssertionError(f"progressive: {r.estimator.count.sum()} samples, "
+                                 f"not {want}")
+        return r, dt, n_preview
+
+    counts2, (r, dt, n_preview) = drive("stress-500 progressive", progressive,
+                                        ["sphere_closest_hit"])
+    log(f"[progressive] stress-500 {width}x{height}: {pumps} pumps in {dt:.2f} s, "
+        f"{pumps / dt:.3f} frames per second (a preview wave of {n_preview} lanes "
+        f"after each epoch reset, then full waves of {width * height} lanes, 1 "
+        f"sample); the camera moved after pump {pumps // 2}, its wave in flight "
+        f"dropped; epoch {r.epoch}, {r.num_rays_cast} rays since the move")
+    for name, img in (("whole", whole), ("resumed", again), ("progressive", r.frame())):
+        rep = validate_radiance(img.reshape(-1, 3))
+        log(f"[check] {name}: {rep}")
+        if not rep.ok:
+            raise AssertionError(f"{name}: invalid radiance ({rep})")
+    return {k: counts[k] + counts2[k] for k in counts}
 
 
 def main() -> int:
@@ -1660,6 +2076,18 @@ def main() -> int:
                                lambda: hdri_lit_scene(device))
     for route in ("walk", "flat", "bvh", "env"):
         gpu_vs_cpu(device, route)
+
+    # Phases 8 and 9: the gradient, resume and progressive paths, each read
+    # with the counts set to 0 just before it; their launches join the ten
+    # paths' (phase 8 (c)'s, a comparison with the CPU, do not).
+    t = time.time()
+    torch.cuda.empty_cache()
+    for counts in (gradient_step(device), vertex_colour_fd(device),
+                   resume_and_progressive(device)):
+        for k, v in counts.items():
+            launches[k] += v
+    log(f"[main] phases 8 and 9 in {time.time() - t:.1f} s; kernel launches over "
+        f"every path: {launches}")
 
     # ms, plain_ms and bound_ms are at the main path's shape (one tile of
     # bounce and shadow rays) for K1-K6 (dragon_tile_*: K3, K4 and K6 on

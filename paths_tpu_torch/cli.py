@@ -4,10 +4,16 @@ Renders a YAML scene, or the built-in stress scene when none is given
 (main.rs:43-50), and writes a PNG.  Runs on the CUDA device unless --cpu is
 given.
 
+With --checkpoint the render state is saved every --checkpoint-every
+samples and at the end, and a render started with an existing checkpoint
+file resumes from it (a checkpoint taken at another seed or size is
+refused).  --check validates the image's radiance (NaN, inf, negative
+energy) and exits 1 on a violation.
+
 Usage:
   python -m paths_tpu_torch.cli [scene.yml] [-o out.png] [--spp N]
       [--size WxH] [--seed N] [--tile N] [--stress N] [--max-bounces N]
-      [--env-nee] [--cpu]
+      [--env-nee] [--checkpoint FILE] [--checkpoint-every N] [--check] [--cpu]
 """
 
 from __future__ import annotations
@@ -17,8 +23,7 @@ import dataclasses
 import time
 
 # Options of the reference CLI that this port does not have yet.
-_NOT_PORTED = ("--dp", "--multihost", "--checkpoint", "--profile",
-               "--native-cpu", "--check")
+_NOT_PORTED = ("--dp", "--multihost", "--profile", "--native-cpu")
 
 
 def main(argv=None):
@@ -34,6 +39,15 @@ def main(argv=None):
     ap.add_argument("--max-bounces", type=int, default=10)
     ap.add_argument("--env-nee", action="store_true",
                     help="importance-sample the HDRI sky for direct light")
+    ap.add_argument("--checkpoint", default=None,
+                    help="checkpoint file; resumed from if it exists, "
+                         "written every --checkpoint-every samples")
+    ap.add_argument("--checkpoint-every", type=int, default=32,
+                    help="samples between checkpoint writes")
+    ap.add_argument("--check", action="store_true",
+                    help="validate the rendered radiance (NaN/inf/negative "
+                         "energy, the Colour::check() analogue) and fail on "
+                         "violations")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch versions of the kernels)")
     for flag in _NOT_PORTED:
@@ -79,15 +93,47 @@ def main(argv=None):
           f"{static.n_spheres} spheres ({static.sph_chunks} kernel chunks, "
           f"{route} route), {tris}, {static.n_lights} lights")
 
+    est, start_sample, on_batch = None, 0, None
+    if args.checkpoint:
+        import os
+
+        from paths_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+        if os.path.exists(args.checkpoint):
+            est, start_sample, ck_seed = load_checkpoint(args.checkpoint)
+            if ck_seed != args.seed or est.width != width or est.height != height:
+                raise SystemExit(
+                    f"checkpoint {args.checkpoint} was taken with different "
+                    f"render settings (seed {ck_seed}, {est.width}x{est.height})"
+                )
+            print(f"resumed {args.checkpoint} at sample {start_sample}")
+
+        last_saved = [start_sample]
+
+        def on_batch(e, next_sample):
+            if (next_sample - last_saved[0] >= args.checkpoint_every
+                    or next_sample >= args.spp):
+                save_checkpoint(args.checkpoint, e, next_sample, args.seed)
+                last_saved[0] = next_sample
+                print(f"[ckpt] saved at sample {next_sample}")
+
     t1 = time.time()
     img = render_image(static, scene, cam, width, height, spp=args.spp,
-                       seed=args.seed, tile_pixels=args.tile, progress=True)
+                       seed=args.seed, tile_pixels=args.tile, progress=True,
+                       est=est, start_sample=start_sample, on_batch=on_batch)
     elapsed = time.time() - t1
-    samples = width * height * args.spp
+    samples = width * height * (args.spp - min(start_sample, args.spp))
     print(f"[{time.time()-t0:6.2f}s] rendered {width}x{height} @ {args.spp}spp "
           f"in {elapsed:.2f}s ({samples/elapsed/1e6:.3f} M pixel-samples/s)")
     write_png(args.output, img)
     print(f"wrote {args.output}")
+    if args.check:
+        from paths_tpu_torch.debug import validate_radiance
+
+        rep = validate_radiance(img.reshape(-1, 3))
+        print(f"[check] {rep}")
+        if not rep.ok:
+            raise SystemExit(1)
     return img
 
 

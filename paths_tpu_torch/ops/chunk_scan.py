@@ -41,7 +41,9 @@ Each wrapper counts its kernel launches in this module's ``LAUNCHES`` and
 nowhere else: a K8 call adds one to ``LAUNCHES["scan_sphere_closest_hit"]``
 and none to ``sphere_traverse.LAUNCHES``, although it runs K1's kernel.  The
 kernels are built with ``nvcc`` at first use into ``build/`` beside the
-package and loaded with ``ctypes``.
+package and loaded with ``ctypes``.  Every wrapper detaches o, d, t_init and
+t_max first, so its outputs carry no gradient on any device
+(``sphere_traverse.cut``, whose module docstring says why).
 """
 
 from __future__ import annotations
@@ -118,6 +120,7 @@ def closest_hit_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
     slot in table order among the nearest.  o, d (N,3) f32; excl_idx (N,)
     i32 triangle id to skip (-1 none); t_init (N,) f32.  On the card, the
     closest-hit walk of pt.nodes (n_chunks is checked, not read)."""
+    o, d, t_init = ST.cut(o, d, t_init)
     if o.device.type == "cpu":
         return TT.closest_hit_tris_plain(pt, n_chunks, o, d, excl_idx, t_init)
     return TT.walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
@@ -129,6 +132,7 @@ def closest_hit_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
     """K8: closest small-sphere hit per lane over the chunked table; the
     contract of closest_hit_chunked, sphere ids as packed.  On the card, the
     closest-hit walk of ps.nodes (n_chunks is checked, not read)."""
+    o, d, t_init = ST.cut(o, d, t_init)
     if o.device.type == "cpu":
         return ST.closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
     return ST.walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
@@ -141,6 +145,7 @@ def occludes_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
     excl_idx, of an entity other than excl_ent, is hit at t < t_max (a lane
     seeded with t_max == 0 reports occluded).  On the card, the any-hit
     walk of pt.nodes (n_chunks is checked, not read)."""
+    o, d, t_max = ST.cut(o, d, t_max)
     if o.device.type == "cpu":
         return TT.occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent,
                                       t_max)
@@ -153,6 +158,7 @@ def occludes_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
     """K9, sphere form: any-hit occlusion over the sphere table (see
     occludes_chunked).  On the card, the any-hit walk of ps.nodes (n_chunks
     is checked, not read)."""
+    o, d, t_max = ST.cut(o, d, t_max)
     if o.device.type == "cpu":
         return ST.occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent,
                                          t_max)
@@ -187,6 +193,7 @@ def flat_closest_hit(table, o, d, excl_idx, t_init):
     """K5, closest-hit form: every slot of the sphere table (R, 128) f32,
     R <= 64, against every lane: (t, gid, ent), t == BIG (gid = ent = 0)
     where nothing beats t_init, the first slot among the nearest."""
+    o, d, t_init = ST.cut(o, d, t_init)
     if o.device.type == "cpu":
         return ST.closest_hit_spheres_plain(table, o, d, excl_idx, t_init)
     _check_cuda(o)
@@ -210,6 +217,7 @@ def flat_occludes(table, o, d, excl_idx, excl_ent, t_max):
     """K5, any-hit form: True per lane iff some sphere of the table other
     than excl_idx, of an entity other than excl_ent, is hit at t < t_max (a
     lane seeded with t_max == 0 reports occluded)."""
+    o, d, t_max = ST.cut(o, d, t_max)
     if o.device.type == "cpu":
         return ST.occludes_spheres_plain(table, o, d, excl_idx, excl_ent, t_max)
     _check_cuda(o)

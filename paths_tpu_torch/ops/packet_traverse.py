@@ -51,7 +51,9 @@ float4 through the read-only path.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises -- it never falls back.  The
-wrapper counts its kernel launches in ``LAUNCHES``.
+wrapper counts its kernel launches in ``LAUNCHES``, and detaches o, d and
+t_init first, so its outputs carry no gradient on any device
+(``sphere_traverse.cut``, whose module docstring says why).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ import numpy as np
 import torch
 
 from paths_tpu_torch import native
-from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on
+from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on, cut
 from paths_tpu_torch.ops.tri_traverse import (BOX_PAD, NODE_FLOATS, PACK_LEAF, TRI_STRIDE,
                                                _leaf_map, _row_hierarchy)
 from paths_tpu_torch.ops.tri_traverse import _pad8 as tris_pad
@@ -321,12 +323,12 @@ def _check_launch(pt: PackedBvh, o, d, excl_idx, t_init):
         raise ValueError("too many lanes for one launch")
 
 
-@torch.no_grad()
 def closest_hit_packet(pt: PackedBvh, o, d, excl_idx, t_init):
     """Closest triangle hit per lane over the BVH table: (t, gid, ent),
     t == BIG (gid = ent = 0) where nothing beats t_init.  o, d (N, 3) f32;
     excl_idx (N,) i32 triangle id to skip (-1 none); t_init (N,) f32.  The
     outputs carry no gradient."""
+    o, d, t_init = cut(o, d, t_init)
     if o.device.type == "cpu":
         return closest_hit_packet_plain(pt, o, d, excl_idx, t_init)
     if o.device.type != "cuda":

@@ -30,6 +30,19 @@ K8 and K9 launch the closest-hit and any-hit walks through
 module's ``LAUNCHES``, not here.  The kernels are built
 with ``nvcc`` at first use into ``build/`` beside the package and loaded
 with ``ctypes``.
+
+Gradients: traversal is a discrete selector, and every public traversal
+wrapper of ``ops/`` (K1-K9) detaches its rays and seeds (o, d, t_init,
+t_max) before it dispatches, so its outputs carry no gradient on any device
+-- on the card the launch makes new tensors anyway, on the CPU the plain
+version would otherwise differentiate t through o and d.  This is the
+counterpart of the reference launchers' ``stop_gradient``
+(``sorted_traverse.py:687-692``, ``pallas_traverse.py:788-790``,
+``:931-933``, ``:1058``).  The integrator recomputes shading
+differentiably at the returned hit, and its eager double-single scans
+(``integrator._scan_spheres``, ``_scan_tris``, ``geom/sphere.intersect`` in
+``occluded_query`` and ``_closest_spheres``) stay differentiable, as the
+reference's XLA scans are (``grad.py``).
 """
 
 from __future__ import annotations
@@ -373,6 +386,11 @@ def _check_nodes(ps: PackedSpheres, device):
                              "float4)")
 
 
+def cut(*xs):
+    """The wrappers' gradient cut (module docstring): each tensor detached."""
+    return tuple(x.detach() for x in xs)
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
@@ -383,7 +401,9 @@ def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
     """Closest small-sphere hit per lane: (t, gid, ent), t == BIG (gid = ent
     = 0) where nothing beats t_init, the first slot among the nearest.  o, d
     (N,3) f32; excl_idx (N,) i32 sphere id to skip (-1 none); t_init (N,)
-    f32.  The kernel walks ps.nodes (n_chunks is checked, not read)."""
+    f32.  The kernel walks ps.nodes (n_chunks is checked, not read).  The
+    outputs carry no gradient."""
+    o, d, t_init = cut(o, d, t_init)
     if o.device.type == "cpu":
         return closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
     return walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
@@ -452,7 +472,8 @@ def occludes_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
     """Any-hit occlusion per lane (bool): some sphere other than excl_idx,
     of an entity other than excl_ent, is hit at t < t_max (a lane seeded
     with t_max == 0 reports occluded).  The kernel walks ps.nodes (n_chunks
-    is checked, not read)."""
+    is checked, not read).  The output carries no gradient."""
+    o, d, t_max = cut(o, d, t_max)
     if o.device.type == "cpu":
         return occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent, t_max)
     return walk_any_hit(ps, n_chunks, o, d, excl_idx, excl_ent, t_max, LAUNCHES,

@@ -40,7 +40,9 @@ read the hierarchy); given CUDA tensors it launches the kernel or raises --
 it never falls back.  Each wrapper counts its kernel launches in
 ``LAUNCHES``.  ``ops/chunk_scan.py``'s K7 and K9 launch the same kernels
 through ``walk_closest_hit`` and ``walk_any_hit`` and count them in their
-own module's ``LAUNCHES``, not here.
+own module's ``LAUNCHES``, not here.  The wrappers' outputs carry no
+gradient on any device: they detach o, d, t_init and t_max first
+(``sphere_traverse.cut``, whose module docstring says why).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import numpy as np
 import torch
 
 from paths_tpu_torch import native
-from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on
+from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on, cut
 from paths_tpu_torch.ops.sphere_traverse import _check_launch as _check_table_and_lanes
 
 PACK_LEAF = 8  # triangle slots per row (one BVH leaf per row)
@@ -482,7 +484,8 @@ def walk_any_hit(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max,
 def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
     """Closest triangle hit per lane: (t, gid, ent), t == BIG (gid = ent = 0)
     where nothing beats t_init.  o, d (N,3) f32; excl_idx (N,) i32 triangle
-    id to skip (-1 none); t_init (N,) f32."""
+    id to skip (-1 none); t_init (N,) f32.  The outputs carry no gradient."""
+    o, d, t_init = cut(o, d, t_init)
     if o.device.type == "cpu":
         return closest_hit_tris_plain(pt, n_chunks, o, d, excl_idx, t_init)
     return walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
@@ -491,7 +494,9 @@ def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
 
 def occludes_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max):
     """Any-hit occlusion per lane (bool): some triangle other than excl_idx,
-    of an entity other than excl_ent, is hit at t < t_max."""
+    of an entity other than excl_ent, is hit at t < t_max.  The output
+    carries no gradient."""
+    o, d, t_max = cut(o, d, t_max)
     if o.device.type == "cpu":
         return occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent, t_max)
     return walk_any_hit(pt, n_chunks, o, d, excl_idx, excl_ent, t_max, LAUNCHES,

@@ -150,15 +150,24 @@ SAMPLE_BATCH = 8
 
 def render_image(static, scene, cam: C.Camera, width: int, height: int,
                  spp: int = 16, seed: int = 0, tile_pixels: int = 65536,
-                 progress: bool = False) -> np.ndarray:
+                 progress: bool = False, est: Estimator | None = None,
+                 start_sample: int = 0, on_batch=None,
+                 sample_batch: int = SAMPLE_BATCH) -> np.ndarray:
     """Render a full frame at `spp` samples per pixel on the scene's device.
     Returns (H, W, 3) linear-RGB float64 means.
 
-    Sample-major: each pass adds a batch of samples to every pixel tile; the
-    host fold is one f64 += per batch in batch order, as in the reference
-    package."""
+    Sample-major: each pass adds a batch of `sample_batch` samples to every
+    pixel tile, so the accumulated state is checkpointable between batches
+    (``checkpoint.py``).  Resume by passing the loaded `est` and
+    `start_sample`: the RNG streams are a function of (seed, pixel, sample)
+    and the host fold is one f64 += per batch in batch order, so a resumed
+    render is bit-identical to an uninterrupted one with the same batch
+    boundaries.  `on_batch(est, next_sample)` fires after each full-frame
+    batch.  The reference's `mesh` (lanes sharded over devices) waits for a
+    port of its ``dist.py``."""
     dev = cam.location.device
-    est = Estimator(width, height)
+    if est is None:
+        est = Estimator(width, height)
     n_pix = width * height
     pix = tiled_pixel_order(width, height)
     px_all = (pix % width).astype(np.int32)
@@ -177,9 +186,9 @@ def render_image(static, scene, cam: C.Camera, width: int, height: int,
             torch.as_tensor(np.pad(pix[sl], (0, pad)).astype(np.int64), device=dev),
         ))
 
-    s = 0
+    s = start_sample
     while s < spp:
-        k = min(SAMPLE_BATCH, spp - s)
+        k = min(sample_batch, spp - s)
         for sl, n, px_t, py_t, pid_t in tiles:
             col = render_samples(static, scene, cam, px_t, py_t, pid_t, s, k, seed)
             est.sum[py_all[sl], px_all[sl]] += col.cpu().numpy().astype(np.float64)[:n]
@@ -187,6 +196,8 @@ def render_image(static, scene, cam: C.Camera, width: int, height: int,
         s += k
         if progress:
             print(f"[render] samples {s}/{spp}")
+        if on_batch is not None:
+            on_batch(est, s)
     return est.mean()
 
 

@@ -42,7 +42,7 @@ def _port_modules():
 
 
 # Modules the checks must cover (the walk below finds every module; this
-# list guards against the walk silently missing the mesh path's).
+# list guards against the walk silently missing a path's modules).
 _EXPECTED = {
     "paths_tpu_torch.native", "paths_tpu_torch.bvh.build",
     "paths_tpu_torch.geom.triangle", "paths_tpu_torch.ops.tri_traverse",
@@ -52,6 +52,9 @@ _EXPECTED = {
     "paths_tpu_torch.scene.yaml_loader", "paths_tpu_torch.scene.build",
     "paths_tpu_torch.integrator", "paths_tpu_torch.ops.packet_traverse",
     "paths_tpu_torch.sky", "paths_tpu_torch.scene.hdr_loader",
+    "paths_tpu_torch.grad", "paths_tpu_torch.checkpoint",
+    "paths_tpu_torch.progressive", "paths_tpu_torch.viewer",
+    "paths_tpu_torch.debug",
 }
 
 
