@@ -8,8 +8,8 @@ Phases, one line each (any failure exits non-zero before the last line):
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
      csrc/flat_spheres.cu, csrc/packet_bvh.cu; nvcc with
      ptxas -v, whose registers, stack frame, spills and shared memory are
-     printed per kernel) and the C++ BVH builder (csrc/bvh_builder.cc, g++),
-     all started together, timed;
+     printed per kernel), the C++ BVH builder (csrc/bvh_builder.cc, g++) and
+     the C++ CPU tracer (csrc/cpu_tracer.cc), all started together, timed;
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
      card, at the stress-500 table and a full 720x480 frame of lanes
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
@@ -127,9 +127,37 @@ Phases, one line each (any failure exits non-zero before the last line):
      and 4 spp checkpointed to a file, loaded and resumed to 8: equal bit
      for bit; 20 pumps of ProgressiveRenderer at 720x480 (a preview wave,
      then full waves), frames per second, the camera moved while a wave is
-     in flight and that wave dropped; validate_radiance on every image.
+     in flight and that wave dropped; validate_radiance on every image;
+  10. data parallel (paths_tpu_torch.dist) on ranks sharing the card over
+     gloo: (a) two ranks render lit stress-500 (4 spp; K1, K2) and
+     doom_standin on the kernel route (4 spp; K3, K4) at 720x480 with
+     render_image(mesh=...), each image equal bit for bit to phase 5's
+     single-process image of the same seed, each rank's launches printed;
+     (b) one sharded_train_step on 65,536 lanes of lit stress-500 (zero
+     target), the loss within rtol 1e-5 and the parameters within rtol
+     1e-4, atol 1e-6 of the single process's loss_and_grad; (c) a finding,
+     not a gate: the CLI on stress-500 at 720x480, 8 spp with --dp 1, 2, 4,
+     4, 2, 1, each a process of its own: pixel-samples/s, the host's
+     os.cpu_count() and the card's busy share (nvidia-smi utilization.gpu,
+     sampled every 100 ms over the render);
+  11. profiles (paths_tpu_torch.profiling): (a) trace around the forward and
+     the backward of one loss_and_grad of lit stress-500 at 720x480, 1 spp:
+     wall, device busy, and the ten device kernels and ten host operators
+     with the most own time, each part apart; (b) the CLI's --profile on
+     stress-500 at 180x120: the trace file names K1's kernel;
+  12. the oracle (csrc/cpu_tracer.cc): the CLI's --native-cpu --threads
+     os.cpu_count() on stress-500 (8 spp), doom_standin (4) and
+     dragon_standin (2) at 720x480, pixel-samples/s; then the card's renders
+     of stress-500 and doom_standin at 48x32, 48 spp against the tracer at
+     192 spp, channel means and 8x4 tile means within
+     tests/test_torch_oracle.py's bounds.
+  After phase 7, environment NEE over a triangle table: doom_standin (kernel
+  route) under scenes/assets/sunrise.hdr with env NEE at 16x12, 2 spp, 3
+  bounces on the card and on the CPU, every environment K4 query (t_max BIG,
+  excl_ent -1) of the card's render held bit for bit against its plain
+  version, the images within relative MSE 1e-4.
 Then a JSON line of per-kernel results (launches summed over the paths of
-phases 5, 8 (a, b) and 9; ms, device_ms, plain_ms and bound_ms at the main
+phases 5, 8 (a, b), 9 and 10 (a, b); ms, device_ms, plain_ms and bound_ms at the main
 path's tile for K1-K6, env_tile_* at configuration (b)'s for K1/K2; at the
 doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
@@ -147,7 +175,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -296,32 +323,12 @@ class flat_route:
 # ---------------------------------------------------------------- phase 2
 
 def build_all():
-    """Build the four CUDA libraries and csrc/bvh_builder.cc at once (one
-    compiler process each), then bind them; returns {source: seconds}."""
+    """Build the four CUDA libraries, csrc/bvh_builder.cc and
+    csrc/cpu_tracer.cc at once (one compiler process each), then bind them;
+    returns {source: seconds}."""
     from paths_tpu_torch import native
-    from paths_tpu_torch.bvh import build as BB
 
-    ST, TT, CS, PK = _kernel_modules()
-
-    def timed(fn):
-        t = time.time()
-        fn()
-        return time.time() - t
-
-    def nvcc(source):
-        return lambda: native.load_library(source, native.nvcc(), native.NVCC_FLAGS,
-                                           verbose=True)
-
-    jobs = {"sphere_traverse.cu": lambda: ST.build_kernels(verbose=True),
-            "tri_traverse.cu": lambda: TT.build_kernels(verbose=True),
-            "flat_spheres.cu": nvcc("flat_spheres.cu"),
-            "packet_bvh.cu": lambda: PK.build_kernels(verbose=True),
-            "bvh_builder.cc": BB._native_lib}
-    with ThreadPoolExecutor(len(jobs)) as ex:
-        futures = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
-        built = {name: f.result() for name, f in futures.items()}
-    CS.build_kernels()  # binds the library just built
-    return built
+    return native.build_all(verbose=True)
 
 
 # ---------------------------------------------------------------- phases 3/4
@@ -1243,7 +1250,7 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     then the CLI on env_demo with --env-nee (no kernel) and configuration
     (b), hdri_lit_scene, through the library entry points (K1, and K2 more
     often than on the lit stress scene).  Returns the summed launch counts
-    of the ten paths."""
+    of the ten paths and the images of lit stress-500 and doom_standin."""
     import numpy as np
     import torch
 
@@ -1383,7 +1390,7 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     for counts, _ in runs:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-    return total
+    return total, {"lit stress-500": runs[1][1], "doom_standin": runs[2][1]}
 
 
 def capture_inputs(run, module, names, call_indices):
@@ -1414,6 +1421,28 @@ def capture_inputs(run, module, names, call_indices):
         for n in names:
             setattr(module, n, origs[n])
     return saved
+
+
+def dev_us(e):
+    """A profiler row's own device time, microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+
+
+def is_label(e):
+    """A range the renderer labels (profiling.labelled), not an operator."""
+    return getattr(e, "is_user_annotation", False) or e.key.startswith("paths_tpu_torch.")
+
+
+def device_rows(prof):
+    """The device-side rows of a profile (kernels, copies) with device time:
+    the operator rows on the host carry the same device time again, and so
+    do the labelled ranges on the device's timeline."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+            and not is_label(e)]
 
 
 def where_time_goes(device, kind, label, make_scene, width=720, height=480,
@@ -1480,14 +1509,7 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
         I.path_step = step
     iters = iters[0]
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    # Device-side rows only (kernels, copies): the operator rows on the host
-    # carry the same device time again.
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    rows = device_rows(prof)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     if busy_ms == 0:
         log(f"[profile] {label}: wall {wall_ms:.1f} ms over {iters} bounce "
@@ -2018,6 +2040,390 @@ def resume_and_progressive(device, width=720, height=480, spp=8, pumps=20):
     return {k: counts[k] + counts2[k] for k in counts}
 
 
+# ---------------------------------------------------------------- phases 10-12
+
+DP_RANKS = 2  # phase 10 (a, b): ranks sharing the one card
+DP_SWEEP = (1, 2, 4, 4, 2, 1)  # phase 10 (c): --dp counts, in turns
+TRAIN_LANES = 65536  # phase 10 (b)
+TRAIN_LR = 0.05
+ORACLE_SIZE, ORACLE_SPP = (48, 32), 48  # phase 12's parity: tests/test_torch_oracle.py's
+# (build arguments, max_bounces, mean_rtol, tile_rtol) of phase 12's parity
+# scenes: tests/test_torch_oracle.py's bounds (on the card each scene takes
+# the CLI's route: doom the kernel route).
+ORACLE_PARITY = {"stress-500": (5, 0.02, 0.06), "doom_standin": (4, 0.02, 0.12)}
+
+
+def dp_rank(mesh, out_dir, width, height, spp, train_lanes):
+    """Phase 10 (a, b) on one rank of `mesh`: render_image(mesh=) of lit
+    stress-500 (spp[1]) and of doom_standin on the CLI's route and settings
+    (spp[2]) at width x height, seed 0, then one sharded_train_step on the
+    first `train_lanes` lanes of lit stress-500 at width x height, 1 spp,
+    against a zero target.  Each rank prints its launches; rank 0 saves the
+    images and the step's loss and parameters, every rank its launch counts,
+    to out_dir."""
+    import torch
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import dist
+    from paths_tpu_torch import grad as G
+    from paths_tpu_torch.render import render_image
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_lit_stress_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
+
+    out, counts = {}, {}
+    lit = build_scene(generate_lit_stress_scene(500), device=mesh.device)
+    doom = build_scene(load_scene_description(DOOM), device=mesh.device)
+    for name, (static, scene, cam), n_spp in (("lit stress-500", lit, spp[1]),
+                                              ("doom_standin", doom, spp[2])):
+        reset_launch_counts()
+        t = time.time()
+        out[name] = render_image(static, scene, C.resize(cam, width, height), width,
+                                 height, spp=n_spp, seed=0, mesh=mesh)
+        counts[name] = launch_counts()
+        log(f"[dp] rank {mesh.rank} of {mesh.size} on {mesh.device}: {name} "
+            f"{width}x{height} {n_spp} spp in {time.time() - t:.2f} s; kernel "
+            f"launches {counts[name]}")
+    static, scene, cam = lit
+    cam = C.resize(cam, width, height)
+    lanes = wave_lanes(width, height, mesh.device, train_lanes)
+    step = dist.sharded_train_step(static, mesh, lr=TRAIN_LR)
+    reset_launch_counts()
+    loss, params = step(G.get_params(scene), scene, cam, *lanes, 0,
+                        torch.zeros((train_lanes, 3), device=mesh.device))
+    counts["train step"] = launch_counts()
+    log(f"[dp] rank {mesh.rank}: sharded_train_step on {train_lanes // mesh.size} of "
+        f"{train_lanes} lanes, loss {float(loss):.6e}; kernel launches "
+        f"{counts['train step']}")
+    if mesh.rank == 0:
+        out["loss"] = loss.cpu()
+        out["params"] = [p.cpu() for p in G.flatten_params(params)]
+        torch.save(out, os.path.join(out_dir, "rank0.pt"))
+    torch.save(counts, os.path.join(out_dir, f"counts{mesh.rank}.pt"))
+
+
+def dp_phase(device, images, width=720, height=480, spp=(8, 4, 4, 2),
+             train_lanes=TRAIN_LANES):
+    """Phase 10 (a, b): DP_RANKS ranks sharing the card over gloo run
+    dp_rank; their images must equal the single-process images of phase 5
+    (`images`: the same scenes, settings and seed) bit for bit, and the
+    train step's loss and parameters must equal the single-process
+    loss_and_grad on the same lanes at tests/test_torch_dist.py's bounds.
+    Returns the ranks' launch counts, summed."""
+    import numpy as np
+    import torch
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import dist
+    from paths_tpu_torch import grad as G
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_lit_stress_scene
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()  # the ranks' memory comes from the same card
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        dist.spawn(dp_rank, DP_RANKS, tmp, width, height, spp, train_lanes, device=device)
+        dt = time.time() - t
+        got = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+        counts = [torch.load(os.path.join(tmp, f"counts{r}.pt")) for r in range(DP_RANKS)]
+    for name in ("lit stress-500", "doom_standin"):
+        a, b = got[name], images[name]
+        differ = int((a != b).any(-1).sum())
+        log(f"[dp] {name} {width}x{height} on {DP_RANKS} ranks sharing the card: "
+            f"{differ} of {width * height} pixels differ from the single-process "
+            "image" + (" (bit for bit equal)" if differ == 0 else ""))
+        if differ:
+            image_parts(f"{name}: dp vs single process", a, b)
+            raise AssertionError(f"{name}: the dp image is not the single-process image")
+    static, scene, cam = build_scene(generate_lit_stress_scene(500), device=device)
+    cam = C.resize(cam, width, height)
+    lanes = wave_lanes(width, height, device, train_lanes)
+    loss, grads = G.loss_and_grad(static, scene, cam, *lanes, 0,
+                                  torch.zeros((train_lanes, 3), device=device))
+    want = [p - TRAIN_LR * g for p, g in zip(G.flatten_params(G.get_params(scene)),
+                                             G.flatten_params(grads))]
+    np.testing.assert_allclose(float(got["loss"]), float(loss), rtol=1e-5)
+    worst = 0.0
+    for a, b in zip(got["params"], want):
+        np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), rtol=1e-4, atol=1e-6)
+        worst = max(worst, float((a - b.cpu()).abs().max()))
+    log(f"[dp] sharded_train_step on {DP_RANKS} ranks, lit stress-500, {train_lanes} "
+        f"lanes: loss {float(got['loss']):.8e} against the single process's "
+        f"{float(loss):.8e} (rtol 1e-5); new parameters equal p - {TRAIN_LR} g to rtol "
+        f"1e-4, atol 1e-6 (largest difference {worst:.3e}); the phase took {dt:.1f} s "
+        "with the ranks' start")
+    total = {}
+    for per_rank in counts:
+        for c in per_rank.values():
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+    for k in ("sphere_closest_hit", "sphere_any_hit", "tri_closest_hit", "tri_any_hit"):
+        if total[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the dp paths")
+    return total
+
+
+class UtilizationSampler:
+    """nvidia-smi's utilization.gpu (the share of a sample period in which a
+    kernel ran), sampled every 100 ms by a child process while the block
+    runs; mean(t0, t1) averages the samples taken between two times of
+    time.time()."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                if line.strip().isdigit():
+                    self.samples.append((time.time(), int(line)))
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.reader.join(timeout=30)
+
+    def mean(self, t0, t1):
+        inside = [u for t, u in self.samples if t0 <= t <= t1]
+        return (statistics.mean(inside), len(inside)) if inside else (float("nan"), 0)
+
+
+def dp_sweep(device, width=720, height=480, spp=8):
+    """Phase 10 (c), a finding and not a gate: the CLI on stress-500 at
+    width x height, spp with --dp N for N in DP_SWEEP on the one card (each
+    a process of its own, in turns), its pixel-samples/s and the card's busy
+    share (nvidia-smi utilization.gpu over the render's window, which ends at
+    the rendered line and lasts the time it reports)."""
+    import re
+
+    import torch
+
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp, UtilizationSampler() as util:
+        for n in DP_SWEEP:
+            cmd = [sys.executable, "-m", "paths_tpu_torch.cli", "--dp", str(n), "--spp",
+                   str(spp), "--size", f"{width}x{height}", "-o",
+                   os.path.join(tmp, f"dp{n}.png")]
+            if torch.device(device).type == "cpu":
+                cmd.append("--cpu")
+            proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            t_end, seen = None, []
+            for line in proc.stdout:
+                seen.append(line)
+                if " rendered " in line:
+                    t_end = time.time()
+                    m = re.search(r"in ([0-9.]+)s \(([0-9.]+) M pixel-samples/s\)", line)
+                    elapsed, rate = float(m.group(1)), float(m.group(2))
+            if proc.wait() != 0 or t_end is None:
+                raise AssertionError(f"--dp {n} failed:\n{''.join(seen)}")
+            busy, n_samples = util.mean(t_end - elapsed, t_end)
+            rates.setdefault(n, []).append(rate)
+            log(f"[dp sweep] --dp {n}: stress-500 {width}x{height} {spp} spp in "
+                f"{elapsed:.2f} s, {rate:.3f} M pixel-samples/s; card busy {busy:.1f}% "
+                f"(nvidia-smi utilization.gpu, {n_samples} samples over the render)")
+    log(f"[dp sweep] host os.cpu_count() {os.cpu_count()}; M pixel-samples/s by --dp: "
+        + "; ".join(f"{n}: {', '.join(f'{r:.3f}' for r in v)}" for n, v in rates.items()))
+
+
+def profile_gradient(device, logdir, width=720, height=480, top=10):
+    """Phase 11 (a): profiling.trace around one loss_and_grad of lit
+    stress-500 at width x height, 1 spp (phase 8 (a)'s frame, zero target),
+    its forward and its backward traced apart; for each, the wall and
+    device-busy times and the `top` device kernels and host operators by
+    their own time."""
+    import torch
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import grad as G
+    from paths_tpu_torch.profiling import trace
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_lit_stress_scene
+
+    static, scene, cam = build_scene(generate_lit_stress_scene(500), device=device)
+    cam = C.resize(cam, width, height)
+    lanes = wave_lanes(width, height, device)
+    target = torch.zeros((lanes[0].shape[0], 3), device=device)
+    G.loss_and_grad(static, scene, cam, *lanes, 0, target)  # warm-up
+    params = G.leaf_params(G.get_params(scene))
+    _sync(device)
+
+    for part in ("forward", "backward"):
+        with trace(os.path.join(logdir, part), device=device) as prof:
+            t = time.perf_counter()
+            if part == "forward":
+                loss = G.l2_loss(static, params, scene, cam, *lanes, 0, target)
+            else:
+                torch.autograd.grad(loss, G.flatten_params(params), allow_unused=True)
+            _sync(device)
+            wall_ms = (time.perf_counter() - t) * 1e3
+        dev = device_rows(prof)
+        host = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.self_cpu_time_total > 0 and not is_label(e)]
+        busy_ms = sum(dev_us(e) for e in dev) / 1e3
+        host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+        n_kernels = sum(e.count for e in dev)
+        n_ops = sum(e.count for e in host)
+        log(f"[profile] loss_and_grad {part}, lit stress-500 {width}x{height} 1 spp: wall "
+            f"{wall_ms:.1f} ms; device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% "
+            f"of wall) in {n_kernels} device kernels; host operators' own time "
+            f"{host_ms:.1f} ms in {n_ops} calls")
+        for kind, sel, key in (("device", dev, dev_us),
+                               ("host", host, lambda e: e.self_cpu_time_total)):
+            best = sorted(sel, key=key, reverse=True)[:top]
+            log(f"[profile] {part} top {top} {kind}: " + "; ".join(
+                f"{e.key[:60]} {key(e) / 1e3:.2f} ms x{e.count}" for e in best))
+
+
+def profile_cli(device, logdir, width=180, height=120):
+    """Phase 11 (b): the CLI's --profile on stress-500 at width x height,
+    1 spp: the trace file must exist and name K1's kernel."""
+    import glob
+
+    from paths_tpu_torch import cli
+
+    import torch
+
+    cpu = ["--cpu"] if torch.device(device).type == "cpu" else []
+    with tempfile.TemporaryDirectory() as tmp:
+        cli.main(["--spp", "1", "--size", f"{width}x{height}", "--profile", logdir,
+                  "-o", os.path.join(tmp, "p.png")] + cpu)
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        text = f.read()
+    n_k1 = text.count("sphere_traverse<false>")
+    log(f"[profile] CLI --profile, stress-500 {width}x{height} 1 spp: {path} "
+        f"({len(text) / 2**20:.1f} MiB) names K1's kernel sphere_traverse<false> "
+        f"{n_k1} times")
+    if n_k1 == 0:
+        raise AssertionError("the CLI's trace does not name K1's kernel")
+
+
+def oracle_phase(device, width=720, height=480, spp=(8, 4, 2)):
+    """Phase 12: the C++ tracer through the CLI (--native-cpu --threads
+    os.cpu_count()) on stress-500, doom_standin and dragon_standin at
+    width x height and each scene's spp of phase 5: pixel-samples/s, the
+    host's anchor.  Then converged-mean parity of the card's render against
+    the tracer on ORACLE_PARITY's scenes at ORACLE_SIZE: global channel
+    means and 8x4 tile means, tests/test_torch_oracle.py's bounds."""
+    import numpy as np
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import cli, native
+    from paths_tpu_torch.render import render_image
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_stress_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
+
+    threads = os.cpu_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path, n_spp in (("stress-500", None, spp[0]), ("doom_standin", DOOM, spp[1]),
+                                  ("dragon_standin", DRAGON, spp[2])):
+            argv = ([path] if path else []) + [
+                "--native-cpu", "--threads", str(threads), "--spp", str(n_spp), "--size",
+                f"{width}x{height}", "-o", os.path.join(tmp, "oracle.png")]
+            t = time.time()
+            img = cli.main(argv)
+            dt = time.time() - t
+            check_image(f"{name} --native-cpu", img)
+            log(f"[oracle] {name} {width}x{height} {n_spp} spp, --native-cpu --threads "
+                f"{threads}: {dt:.2f} s with the scene build (the CLI's line above gives "
+                "the render's own time and pixel-samples/s)")
+    w, h = ORACLE_SIZE
+    for name, (mb, mean_rtol, tile_rtol) in ORACLE_PARITY.items():
+        sd = generate_stress_scene(500) if name == "stress-500" else load_scene_description(DOOM)
+        static, scene, cam = build_scene(sd, device=device)
+        static = dataclasses.replace(static, max_bounces=mb)
+        cam = C.resize(cam, w, h)
+        oracle = native.cpu_render(static, scene, cam, w, h, 4 * ORACLE_SPP, seed=11,
+                                   n_threads=threads, max_bounces=mb)
+        img = render_image(static, scene, cam, w, h, spp=ORACLE_SPP, seed=0)
+        m_o, m_c = oracle.mean(axis=(0, 1)), img.mean(axis=(0, 1))
+        mean_err = float((np.abs(m_c - m_o) / m_o).max())
+
+        def tiles(a):
+            return a.reshape(4, h // 4, 8, w // 8, 3).mean(axis=(1, 3))
+
+        tile_err = float((np.abs(tiles(img) - tiles(oracle)) / float(m_o.mean())).max())
+        log(f"[oracle] {name} {w}x{h}, {mb} bounces: the card at {ORACLE_SPP} spp against "
+            f"the tracer at {4 * ORACLE_SPP} spp: channel means within {mean_err:.4f} "
+            f"(< {mean_rtol}), 8x4 tiles within {tile_err:.4f} of the mean (< {tile_rtol})")
+        if not (mean_err < mean_rtol and tile_err < tile_rtol):
+            raise AssertionError(f"{name}: the card's render is not the oracle's")
+
+
+def hdri_doom_scene(device):
+    """doom_standin (kernel route) under scenes/assets/sunrise.hdr with
+    environment NEE on: (static, scene, camera)."""
+    from paths_tpu_torch.scene import desc as D
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
+
+    sd = load_scene_description(DOOM)
+    sd.skybox = D.SkyboxD(kind="hdri", filename=SUNRISE)
+    static, scene, cam = build_scene(sd, device=device)
+    if not static.tri_chunks:
+        raise AssertionError("HDRI doom did not take the kernel route")
+    return dataclasses.replace(static, env_nee=True), scene, cam
+
+
+def hdri_doom(device, width=16, height=12, spp=2, bounces=3):
+    """Environment NEE over a triangle table: doom_standin under the HDRI
+    with env NEE at width x height, spp, `bounces` bounces, on the card with
+    every environment K4 query (t_max BIG, no entity excluded) held bit for
+    bit against its plain version on its inputs, and on the CPU; the images
+    agree to relative MSE < 1e-4 (phase 7's bound)."""
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch.render import render_image
+
+    TT = _kernel_modules()[1]
+    k4, held = TT.occludes_tris, [0]
+
+    def k4_held(pt, n_chunks, o, d, excl_idx, excl_ent, t_max):
+        got = k4(pt, n_chunks, o, d, excl_idx, excl_ent, t_max)
+        if bool((t_max == BIG).all()) and bool((excl_ent == -1).all()):
+            check_equal("tri_any_hit on the environment's query", got,
+                        TT.occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent, t_max))
+            held[0] += 1
+        return got
+
+    imgs = []
+    for dev in (device, "cpu"):
+        static, scene, cam = hdri_doom_scene(dev)
+        static = dataclasses.replace(static, max_bounces=bounces)
+        if dev == device:
+            TT.occludes_tris = k4_held
+            reset_launch_counts()
+        try:
+            imgs.append(render_image(static, scene, C.resize(cam, width, height), width,
+                                     height, spp=spp, seed=0))
+        finally:
+            TT.occludes_tris = k4
+        if dev == device:
+            counts = launch_counts()
+    if held[0] == 0:
+        raise AssertionError("no environment K4 query was made")
+    if counts["tri_any_hit"] == 0:
+        raise AssertionError("tri_any_hit was not launched on HDRI doom")
+    rel = rel_mse(*imgs)
+    log(f"[gpu-vs-cpu] doom_standin under the sunrise HDRI with env NEE, {width}x{height} "
+        f"{spp} spp, {bounces} bounces: each of the card's {held[0]} environment K4 "
+        f"queries (t_max BIG, excl_ent -1) equal to the plain version on its inputs; "
+        f"relative MSE against the CPU {rel:.3e} (< 1e-4); launches {counts}")
+    if not rel < 1e-4:
+        raise AssertionError(f"HDRI doom: card vs CPU relative MSE {rel:.3e} >= 1e-4")
+
+
 def main() -> int:
     import torch
 
@@ -2044,7 +2450,7 @@ def main() -> int:
             "dragon": tri_kernel_phases(device, DRAGON, "dragon_standin")}
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches = main_path(device, tmp)
+        launches, images = main_path(device, tmp)
     log(f"[main] kernel launches over the ten paths: {launches}")
 
     tile = where_time_goes(
@@ -2076,6 +2482,7 @@ def main() -> int:
                                lambda: hdri_lit_scene(device))
     for route in ("walk", "flat", "bvh", "env"):
         gpu_vs_cpu(device, route)
+    hdri_doom(device)
 
     # Phases 8 and 9: the gradient, resume and progressive paths, each read
     # with the counts set to 0 just before it; their launches join the ten
@@ -2086,8 +2493,27 @@ def main() -> int:
                    resume_and_progressive(device)):
         for k, v in counts.items():
             launches[k] += v
-    log(f"[main] phases 8 and 9 in {time.time() - t:.1f} s; kernel launches over "
-        f"every path: {launches}")
+    log(f"[main] phases 8 and 9 in {time.time() - t:.1f} s")
+
+    # Phase 10: data-parallel rendering and training on ranks sharing the
+    # card (their launches join the main paths'), then the --dp sweep;
+    # phase 11: profiles; phase 12: the oracle.
+    t = time.time()
+    for k, v in dp_phase(device, images).items():
+        launches[k] += v
+    log(f"[main] phase 10 (a, b) in {time.time() - t:.1f} s")
+    t = time.time()
+    dp_sweep(device)
+    log(f"[main] phase 10 (c) in {time.time() - t:.1f} s")
+    t = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        profile_gradient(device, tmp)
+        profile_cli(device, os.path.join(tmp, "cli"))
+    log(f"[main] phase 11 in {time.time() - t:.1f} s")
+    t = time.time()
+    oracle_phase(device)
+    log(f"[main] phase 12 in {time.time() - t:.1f} s; kernel launches over every "
+        f"path: {launches}")
 
     # ms, plain_ms and bound_ms are at the main path's shape (one tile of
     # bounce and shadow rays) for K1-K6 (dragon_tile_*: K3, K4 and K6 on

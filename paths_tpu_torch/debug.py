@@ -8,17 +8,55 @@ analogue over a whole wave or image: it counts NaN, infinite and
 negative-energy samples and raises in strict mode; the CLI exposes it as
 ``--check``.
 
-The reference's ``debug_checks`` scope (JAX's NaN debugging and internal
-checks) has no counterpart yet; its PyTorch form, anomaly detection with NaN
-checks, comes with a port of ``profiling.py``.
+``debug_checks()`` is the PyTorch form of the reference's scope of JAX's
+NaN debugging and internal checks: autograd's anomaly detection with its
+NaN check on every backward node, and a check of the outputs of
+``render.render_samples``, ``render.render_wave`` and
+``grad.loss_and_grad``, which raise ``FloatingPointError`` naming the
+function on a NaN or an infinity.  Under jit, JAX's NaN checks look at the
+outputs of the jitted call, not at the masked intermediates inside it; the
+output checks look at the same thing.  Slow (every check reads the device):
+use on small repros.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+# Set inside debug_checks(): check_outputs raises on NaN or infinity.
+CHECK_OUTPUTS = False
+
+
+@contextlib.contextmanager
+def debug_checks():
+    """Within the scope, autograd's anomaly detection with NaN checks is on
+    and the renderer's entry points check their outputs (check_outputs).
+    Both settings are restored on exit, also on an exception."""
+    global CHECK_OUTPUTS
+    anomaly, check_nan = torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()
+    checks = CHECK_OUTPUTS
+    torch.autograd.set_detect_anomaly(True, check_nan=True)
+    CHECK_OUTPUTS = True
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(anomaly, check_nan=check_nan)
+        CHECK_OUTPUTS = checks
+
+
+def check_outputs(name: str, *tensors) -> None:
+    """Inside debug_checks(), raise FloatingPointError naming `name` when
+    any of `tensors` holds a NaN or an infinity; outside it, nothing."""
+    if not CHECK_OUTPUTS:
+        return
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"{name}: NaN or infinity in its output "
+                                     f"(shape {tuple(t.shape)})")
 
 
 @dataclass

@@ -50,8 +50,12 @@ def intersect(o, d, center, radius):
     disc = ds.add(ds.sub(ds.sqr(b), oc2), r2)
     disc_v = ds.to_f32(disc)
 
-    disc_safe = (torch.clamp_min(disc[0], 0.0),
-                 torch.where(disc_v >= 0, disc[1], torch.zeros_like(disc[1])))
+    # Lanes that miss take a zero discriminant, also where it is NaN (rays
+    # from the integrator's DEAD_ORIGIN overflow b^2 and oc.oc): no NaN in
+    # the forward that the backward would multiply by a zero gradient.
+    valid = disc_v >= 0
+    disc_safe = (torch.where(valid, torch.clamp_min(disc[0], 0.0), 0.0),
+                 torch.where(valid, disc[1], 0.0))
     root = ds.sqrt(disc_safe)
 
     tmp = ds.neg(b)

@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paths_tpu_torch import debug
 from paths_tpu_torch.render import render_wave
 from paths_tpu_torch.scene.types import SceneArrays
 
@@ -84,11 +85,14 @@ def params_from_numpy(arrays: dict, device) -> dict:
     return p
 
 
-def _flat(params: dict) -> list:
+def flatten_params(params: dict) -> list:
+    """The parameters' tensors in a fixed order: PARAM_FIELDS, then the
+    sky's SKY_PARAM_FIELDS."""
     return [params[f] for f in PARAM_FIELDS] + [params["sky"][f] for f in SKY_PARAM_FIELDS]
 
 
-def _unflat(leaves) -> dict:
+def unflatten_params(leaves) -> dict:
+    """The parameters' structure of tensors in flatten_params' order."""
     n = len(PARAM_FIELDS)
     p = dict(zip(PARAM_FIELDS, leaves[:n]))
     p["sky"] = dict(zip(SKY_PARAM_FIELDS, leaves[n:]))
@@ -99,8 +103,8 @@ def leaf_params(params: dict, fields=None) -> dict:
     """Leaf copies of the parameters, with ``requires_grad`` set on those
     named in `fields` (every field when None; a sky field by its own name)."""
     names = list(PARAM_FIELDS) + list(SKY_PARAM_FIELDS)
-    return _unflat([x.detach().clone().requires_grad_(fields is None or name in fields)
-                    for name, x in zip(names, _flat(params))])
+    return unflatten_params([x.detach().clone().requires_grad_(fields is None or name in fields)
+                             for name, x in zip(names, flatten_params(params))])
 
 
 def render_with_params(static, scene, params, cam, px, py, pixel_id, sample_id, seed):
@@ -117,14 +121,14 @@ def l2_loss(static, params, scene, cam, px, py, pixel_id, sample_id, seed, targe
 def _grads(out, params: dict) -> dict:
     """d(out)/d(every parameter), zeros where a parameter does not reach
     `out`, in the parameters' structure."""
-    leaves = _flat(params)
+    leaves = flatten_params(params)
     wanted = [x for x in leaves if x.requires_grad]
     got = iter(torch.autograd.grad(out, wanted, allow_unused=True))
     grads = []
     for x in leaves:
         g = next(got) if x.requires_grad else None
         grads.append(torch.zeros_like(x) if g is None else g)
-    return _unflat(grads)
+    return unflatten_params(grads)
 
 
 def loss_and_grad(static, scene, cam, px, py, pixel_id, sample_id, seed, target):
@@ -133,7 +137,9 @@ def loss_and_grad(static, scene, cam, px, py, pixel_id, sample_id, seed, target)
     structure, through ``torch.autograd.grad`` on leaf copies of them."""
     params = leaf_params(get_params(scene))
     loss = l2_loss(static, params, scene, cam, px, py, pixel_id, sample_id, seed, target)
-    return loss.detach(), _grads(loss, params)
+    grads = _grads(loss, params)
+    debug.check_outputs("loss_and_grad", loss, *flatten_params(grads))
+    return loss.detach(), grads
 
 
 def pixel_gradient(static, scene, cam, px, py, pixel_id, sample_id, seed, param_field):

@@ -257,21 +257,23 @@ def intersect_full(static, scene, o, d, excl_kind, excl_idx):
             dim=1,
         )[torch.where(kind == KIND_TRI, idx, 0)]
         n = rows[:, 9:12]
-        # Barycentrics recomputed at the chosen triangle.
-        _, _, bx, by, bz, cos = GT.intersect(o, d, rows[:, 0:3], rows[:, 3:6],
-                                             rows[:, 6:9], n)
-        # Lanes off triangles (a dead lane's far origin) may get NaN
-        # barycentrics; zeroed, so that the vertex colours' gradient there is
-        # 0, not 0 * NaN.  Those lanes take the defaults below either way.
+        v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        # Barycentrics recomputed at the chosen triangle.  Lanes off
+        # triangles (a dead lane's far origin among them) ask instead about
+        # a ray down the normal onto their row's centroid: every value stays
+        # finite, so no zero gradient meets a NaN or an infinity in the
+        # backward (0 * NaN is NaN).  Those lanes take the defaults below.
         on_tri = kind == KIND_TRI
-        bx, by, bz = (torch.where(on_tri, b, 0.0) for b in (bx, by, bz))
+        sel = on_tri[..., None]
+        o_t = torch.where(sel, o, (v0 + v1 + v2) / 3.0 + n)
+        d_t = torch.where(sel, d, -n)
+        _, _, bx, by, bz, cos = GT.intersect(o_t, d_t, v0, v1, v2, n)
         geo_n = n * torch.where(cos > 0.0, -1.0, 1.0)[..., None]
         smooth_n = (rows[:, 12:15] * bx[..., None] + rows[:, 15:18] * by[..., None]
                     + rows[:, 18:21] * bz[..., None])
         tri_normal = torch.where((rows[:, 30] > 0.5)[..., None], smooth_n, geo_n)
         vc = (rows[:, 21:24] * bx[..., None] + rows[:, 24:27] * by[..., None]
               + rows[:, 27:30] * bz[..., None])
-        sel = on_tri[..., None]
         normal = torch.where(sel, tri_normal, normal)
         vtx_colour = torch.where(sel, vc, vtx_colour)
     return dict(found=found, kind=kind, idx=idx, ent=ent, t=t,

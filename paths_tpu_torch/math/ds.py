@@ -88,9 +88,12 @@ def to_f32(x):
 
 
 def sqrt(x):
-    """Double-single sqrt via one Newton step on the f32 estimate."""
+    """Double-single sqrt via one Newton step on the f32 estimate, for
+    hi >= 0.  Where hi is 0 the root is 0 without a sqrt of 0, whose
+    derivative is infinite (a zero gradient times it is NaN in autograd)."""
     hi, lo = x
-    s = _sqrt_f32(hi)
+    pos = hi > 0
+    s = torch.where(pos, _sqrt_f32(torch.where(pos, hi, 1.0)), 0.0)
     p, e = two_prod(s, s)
     r = (hi - p) - e + lo
     safe_s = torch.where(s > 0, s, torch.ones_like(s))

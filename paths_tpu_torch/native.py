@@ -1,6 +1,7 @@
 """Builds the port's native sources (``csrc/``) at first use and loads them
 with ``ctypes``: the CUDA kernels with ``nvcc`` for ``sm_90a``, and the host
-C++ BVH builder with ``g++``.
+C++ BVH builder and CPU path tracer (the oracle, ``cpu_render``) with
+``g++``.
 
 Each library is compiled once per version of its source and flags into
 ``build/paths_tpu_torch/`` beside the package (the file name carries a hash
@@ -18,7 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import numpy as np
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "paths_tpu_torch"
@@ -27,8 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "paths_tpu_torch"
 # exactly the fused multiply-adds their contract names, as fmaf.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-# The reference's flags for its native BVH builder (paths_tpu/native/Makefile);
-# ISO C++17 keeps GCC from contracting multiply-adds.
+# The reference's flags for its native BVH builder and CPU tracer
+# (paths_tpu/native/Makefile); ISO C++17 keeps GCC from contracting
+# multiply-adds.
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
              "-pthread", "-shared"]
 
@@ -47,7 +53,7 @@ def cxx() -> str:
     found = shutil.which("g++")
     if found is None:
         raise RuntimeError("no C++ compiler (g++) found: the BVH builder "
-                           "cannot be built")
+                           "and the CPU tracer cannot be built")
     return found
 
 
@@ -91,3 +97,115 @@ def load_library(source: str, compiler: str, flags: list[str],
             print(res.stderr.strip())
         os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
     return ctypes.CDLL(str(so))
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Build (or find built) and bind every library of ``csrc/`` at once,
+    one compiler process each: the four CUDA libraries, the host BVH
+    builder and the CPU tracer.  Processes that will render together on the
+    card call it first, so that none of them compiles while the others
+    wait.  verbose prints ptxas's report of each kernel.  Returns {source:
+    seconds}."""
+    from paths_tpu_torch.bvh import build as BB
+    from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import packet_traverse as PK
+    from paths_tpu_torch.ops import sphere_traverse as ST
+    from paths_tpu_torch.ops import tri_traverse as TT
+
+    jobs = {"sphere_traverse.cu": lambda: ST.build_kernels(verbose),
+            "tri_traverse.cu": lambda: TT.build_kernels(verbose),
+            "flat_spheres.cu": lambda: CS.build_kernels(verbose),
+            "packet_bvh.cu": lambda: PK.build_kernels(verbose),
+            "bvh_builder.cc": BB._native_lib,
+            "cpu_tracer.cc": _tracer_lib}
+
+    def timed(fn):
+        t = time.time()
+        fn()
+        return time.time() - t
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+_tracer = None
+
+
+def _tracer_lib() -> ctypes.CDLL:
+    global _tracer
+    if _tracer is None:
+        lib = load_library("cpu_tracer.cc", cxx(), CXX_FLAGS)
+        i, u64 = ctypes.c_int, ctypes.c_uint64
+        p = ctypes.c_void_p
+        # paths_cpu_render's arguments, in order (csrc/cpu_tracer.cc):
+        # sizes and counts as int, the seed as uint64, every array a pointer.
+        lib.paths_cpu_render.argtypes = (
+            [i, i, i, u64, i, i, p]  # width .. max_bounces, cam17
+            + [i, p, p, p]  # spheres
+            + [i, p, p, p, p, p, p, p, p]  # triangles
+            + [i, p, p, p, p, p, p, p, p]  # entities
+            + [i, p, p, p, p, p, p]  # lights
+            + [i, p, p, i, i, p]  # sky
+            + [p])  # out
+        lib.paths_cpu_render.restype = i
+        _tracer = lib
+    return _tracer
+
+
+def cpu_render(static, scene, cam, width: int, height: int, spp: int,
+               seed: int = 0, n_threads: int = 4, max_bounces: int = 10):
+    """Render with the C++ CPU tracer (``csrc/cpu_tracer.cc``, port of
+    ``paths_tpu/native/__init__.py::cpu_render``): the host anchor and the
+    independent oracle.  Takes the (static, scene, cam) triple that
+    ``scene.build.build_scene`` returns, on any device, and hands the tracer
+    host copies (f64, int32, uint8).  Returns the (H, W, 3) f64
+    linear-radiance means, or None when the scene uses a material the
+    Rust renderer cannot BSDF-sample (Cook-Torrance, Fresnel:
+    material.rs:81-88), which the tracer refuses.  A failed build
+    raises."""
+    lib = _tracer_lib()
+
+    def host(t, dtype, n=None):
+        a = t.detach().cpu().numpy()
+        return np.ascontiguousarray(a if n is None else a[:n], dtype)
+
+    f64 = lambda t, n=None: host(t, np.float64, n)
+    i32 = lambda t, n=None: host(t, np.int32, n)
+    u8 = lambda t, n=None: host(t, np.uint8, n)
+
+    # The camera: 17 doubles [loc 3, rot 9 row-major, f, v, aperture, sw, sh].
+    cam17 = np.concatenate([
+        f64(cam.location).ravel(), f64(cam.rot).ravel(),
+        [float(x) for x in (cam.focal_length, cam.distance_from_lens, cam.aperture,
+                            cam.sensor_width, cam.sensor_height)]])
+    n_sph, n_tri, n_lights = static.n_spheres, static.n_tris, static.n_lights
+    sph = (f64(scene.sph_center, n_sph), f64(scene.sph_radius, n_sph),
+           i32(scene.sph_ent, n_sph))
+    tris = (f64(scene.tri_v0, n_tri), f64(scene.tri_v1, n_tri), f64(scene.tri_v2, n_tri),
+            f64(scene.tri_n, n_tri),
+            np.concatenate([f64(getattr(scene, f"tri_vn{k}"), n_tri) for k in range(3)], 1),
+            np.concatenate([f64(getattr(scene, f"tri_vc{k}"), n_tri) for k in range(3)], 1),
+            i32(scene.tri_ent, n_tri), u8(scene.tri_smooth, n_tri))
+    ents = (i32(scene.mat_mtype), f64(scene.mat_albedo), u8(scene.mat_albedo_vertex),
+            f64(scene.mat_emit), f64(scene.mat_r0), f64(scene.mat_metalness),
+            u8(scene.ent_is_light), f64(scene.ent_light_emission))
+    lights = tuple(conv(getattr(scene, f), n_lights) for conv, f in (
+        (i32, "light_ltype"), (f64, "light_pos"), (f64, "light_radius"),
+        (f64, "light_colour"), (f64, "light_intensity"), (i32, "light_ent")))
+    sky_a = np.resize(f64(scene.sky.colour_a).ravel(), 3)
+    sky_b = np.resize(f64(scene.sky.colour_b).ravel(), 3)
+    sky_img = host(scene.sky.image, np.float32)
+    out = np.zeros((height, width, 3), np.float64)
+
+    ptr = lambda a: a.ctypes.data  # every array above outlives the call
+    rc = lib.paths_cpu_render(
+        width, height, spp, seed, n_threads, max_bounces, ptr(cam17),
+        n_sph, *map(ptr, sph),
+        n_tri, *map(ptr, tris),
+        len(ents[0]), *map(ptr, ents),
+        n_lights, *map(ptr, lights),
+        static.sky_type, ptr(sky_a), ptr(sky_b), sky_img.shape[1], sky_img.shape[0],
+        ptr(sky_img),
+        ptr(out))
+    return None if rc else out

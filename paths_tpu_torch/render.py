@@ -17,8 +17,10 @@ import numpy as np
 import torch
 
 from paths_tpu_torch import camera as C
+from paths_tpu_torch import debug
 from paths_tpu_torch import integrator as I
 from paths_tpu_torch.math.colour import to_bytes_np
+from paths_tpu_torch.profiling import labelled
 from paths_tpu_torch.sampling import cmj
 from paths_tpu_torch.sampling import hashing as H
 
@@ -45,15 +47,19 @@ def gen_camera_rays(cam: C.Camera, px, py, pixel_id, sample_id, seed):
     return C.get_rays(cam, px, py, sq, dk)
 
 
+@labelled("paths_tpu_torch.render_wave")
 def render_wave(static, scene, cam: C.Camera, px, py, pixel_id, sample_id,
                 seed) -> torch.Tensor:
     """Radiance estimates for one sample of N pixels: (N, 3)."""
     o, d, w = gen_camera_rays(cam, px, py, pixel_id, sample_id, seed)
     col = I.trace_rays(static, scene, o, d, H.as_u32(pixel_id),
                        H.as_u32(sample_id), seed)
-    return col * w[..., None]  # worker.rs:77: sample = trace * weight
+    col = col * w[..., None]  # worker.rs:77: sample = trace * weight
+    debug.check_outputs("render_wave", col)
+    return col
 
 
+@labelled("paths_tpu_torch.render_samples")
 def render_samples(static, scene, cam, px, py, pixel_id, sample_start,
                    n_samples: int, seed) -> torch.Tensor:
     """Sum of `n_samples` consecutive radiance samples per pixel lane, as a
@@ -103,6 +109,7 @@ def render_samples(static, scene, cam, px, py, pixel_id, sample_start,
         )
         # Retired lanes must not keep tracing.
         state = state[:4] + (state[4] & ~done,) + state[5:]
+    debug.check_outputs("render_samples", acc)
     return acc
 
 
@@ -152,7 +159,7 @@ def render_image(static, scene, cam: C.Camera, width: int, height: int,
                  spp: int = 16, seed: int = 0, tile_pixels: int = 65536,
                  progress: bool = False, est: Estimator | None = None,
                  start_sample: int = 0, on_batch=None,
-                 sample_batch: int = SAMPLE_BATCH) -> np.ndarray:
+                 sample_batch: int = SAMPLE_BATCH, mesh=None) -> np.ndarray:
     """Render a full frame at `spp` samples per pixel on the scene's device.
     Returns (H, W, 3) linear-RGB float64 means.
 
@@ -163,8 +170,17 @@ def render_image(static, scene, cam: C.Camera, width: int, height: int,
     and the host fold is one f64 += per batch in batch order, so a resumed
     render is bit-identical to an uninterrupted one with the same batch
     boundaries.  `on_batch(est, next_sample)` fires after each full-frame
-    batch.  The reference's `mesh` (lanes sharded over devices) waits for a
-    port of its ``dist.py``."""
+    batch.
+
+    mesh (``dist.make_mesh``): the ranks of its process group each render
+    their contiguous shard of every tile's lanes (the tile rounded up to a
+    multiple of the world size) and fold it into their own share of the
+    estimator; before each on_batch and before returning, the shares are
+    all-reduced into `est` on every rank.  The ranks' pixels are disjoint,
+    so the sum is exact and the image equals the single-process one bit for
+    bit; a loaded `est` is counted once (each rank keeps only its own
+    pixels of it).  Every rank passes the same arguments; rank 0 alone
+    prints progress and calls on_batch."""
     dev = cam.location.device
     if est is None:
         est = Estimator(width, height)
@@ -173,31 +189,52 @@ def render_image(static, scene, cam: C.Camera, width: int, height: int,
     px_all = (pix % width).astype(np.int32)
     py_all = (pix // width).astype(np.int32)
 
-    tile = min(tile_pixels, n_pix)
+    n_ranks, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    tile = -(-min(tile_pixels, n_pix) // n_ranks) * n_ranks
+    k_rank = tile // n_ranks
     tiles = []
     for start in range(0, n_pix, tile):
-        end = min(start + tile, n_pix)
-        pad = tile - (end - start)
-        sl = slice(start, end)
+        # This rank's lanes of the tile; past the frame's end, pixel 0 pads.
+        sl = slice(min(start + rank * k_rank, n_pix),
+                   min(start + (rank + 1) * k_rank, n_pix))
+        pad = k_rank - (sl.stop - sl.start)
         tiles.append((
-            sl, end - start,
+            sl, sl.stop - sl.start,
             torch.as_tensor(np.pad(px_all[sl], (0, pad)), device=dev),
             torch.as_tensor(np.pad(py_all[sl], (0, pad)), device=dev),
             torch.as_tensor(np.pad(pix[sl], (0, pad)).astype(np.int64), device=dev),
         ))
+
+    share, sync = est, lambda: None
+    if mesh is not None:
+        from paths_tpu_torch import dist
+
+        mine = np.zeros((height, width), bool)
+        for sl, *_ in tiles:
+            mine[py_all[sl], px_all[sl]] = True
+        share = Estimator(width, height)
+        share.sum[mine] = est.sum[mine]
+        share.count[mine] = est.count[mine]
+
+        def sync():
+            est.sum[:] = dist.all_reduce_sum(share.sum, mesh)
+            est.count[:] = dist.all_reduce_sum(share.count, mesh)
 
     s = start_sample
     while s < spp:
         k = min(sample_batch, spp - s)
         for sl, n, px_t, py_t, pid_t in tiles:
             col = render_samples(static, scene, cam, px_t, py_t, pid_t, s, k, seed)
-            est.sum[py_all[sl], px_all[sl]] += col.cpu().numpy().astype(np.float64)[:n]
-            est.count[py_all[sl], px_all[sl]] += k
+            share.sum[py_all[sl], px_all[sl]] += col.cpu().numpy().astype(np.float64)[:n]
+            share.count[py_all[sl], px_all[sl]] += k
         s += k
-        if progress:
+        if progress and rank == 0:
             print(f"[render] samples {s}/{spp}")
         if on_batch is not None:
-            on_batch(est, s)
+            sync()
+            if rank == 0:
+                on_batch(est, s)
+    sync()
     return est.mean()
 
 

@@ -54,7 +54,7 @@ _EXPECTED = {
     "paths_tpu_torch.sky", "paths_tpu_torch.scene.hdr_loader",
     "paths_tpu_torch.grad", "paths_tpu_torch.checkpoint",
     "paths_tpu_torch.progressive", "paths_tpu_torch.viewer",
-    "paths_tpu_torch.debug",
+    "paths_tpu_torch.debug", "paths_tpu_torch.dist", "paths_tpu_torch.profiling",
 }
 
 
