@@ -8,8 +8,13 @@ Phases, one line each (any failure exits non-zero before the last line):
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
      csrc/flat_spheres.cu, csrc/packet_bvh.cu; nvcc with
      ptxas -v, whose registers, stack frame, spills and shared memory are
-     printed per kernel), the C++ BVH builder (csrc/bvh_builder.cc, g++) and
-     the C++ CPU tracer (csrc/cpu_tracer.cc), all started together, timed;
+     printed per kernel), the C++ BVH builder (csrc/bvh_builder.cc, g++),
+     the C++ mesh parsers (csrc/mesh_io.cc) and the C++ CPU tracer
+     (csrc/cpu_tracer.cc), all started together, timed;
+  2b. the mesh parsers: doom_standin's and dragon_standin's PLYs through the
+     loaders' C++ parser (the default) and their pure-Python path, in turns,
+     each call's seconds printed; vertices and faces equal bit for bit,
+     uchar colours within one ulp in f64 and equal in f32;
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
      card, at the stress-500 table and a full 720x480 frame of lanes
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
@@ -46,10 +51,12 @@ Phases, one line each (any failure exits non-zero before the last line):
   3b/4b. parity and timing, triangles: K3/K4 on the doom_standin table (96k
      triangles, 8 rows per chunk) and the dragon_standin table (200k, 20 rows
      per chunk).  The kernels are timed on full 720x480 frames of primary
-     and of incoherent rays; they are held equal to their plain versions
-     (flat brute force, timed once) on 65,536 of those lanes -- every
-     tenth-or-so primary ray and the first 32,768 incoherent rays -- where
-     the bound is counted too;
+     and of incoherent rays, and timed and bounded on 65,536 of those lanes
+     -- every tenth-or-so primary ray and the first 32,768 incoherent rays;
+     there they are held equal to their plain versions (flat brute force,
+     timed once) on every fourth lane (16,384: both kinds of ray), and on
+     all 65,536 every lane the any-hit flags must have an occluder before
+     its t_max (the plain row test's nearest, which bounds the any-hit);
   3d/4d. the same for K7 and K9's triangle form on the doom_standin table
      repacked at 32 rows per chunk (the same BVH and leaves), and K3/K4 on
      that same table and subset beside them: K7/K9 launch K3/K4's walks, so
@@ -61,11 +68,12 @@ Phases, one line each (any failure exits non-zero before the last line):
      and t_max at a lane's exact hit and occluder distances, t_max == 0,
      dead lanes, zero direction components, origins on a box plane;
   3e/4e. K6 on the BVH route's table of each mesh scene (the same BVH and
-     leaves): held equal to its plain version on 65,536 primary rays and on
-     65,536 incoherent rays (t_init 0 where t_max is 0), on both full
-     frames and on 4,096 adversarial lanes (as 3f's, with origins on planes
-     of K6's tree and t_init at K6's own exact hit distances), timed on the
-     subsets and frames, with K3 timed on the same rays beside it.  Every
+     leaves): timed and bounded on 65,536 primary rays and on 65,536
+     incoherent rays (t_init 0 where t_max is 0) and held equal to its plain
+     version on every fourth of them, on both full frames and on 4,096
+     adversarial lanes (as 3f's, with origins on planes of K6's tree and
+     t_init at K6's own exact hit distances), timed on the subsets and
+     frames, with K3 timed on the same rays beside it.  Every
      triangle kernel is bounded on the BVH's leaves of at most 8 triangles,
      the finest division of the same rows: the needed pairs (the 8 slots of
      each leaf a lane enters before its answer) and the needed bytes (those
@@ -74,7 +82,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      it and read just after: the CLI renders the 500-sphere stress scene at
      720x480, 8 spp (K1); the lit stress scene renders at 720x480, 4 spp
      (K1, K2); the CLI renders scenes/doom_standin.yml at 720x480, 4 spp and
-     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4); then, with
+     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4), their meshes
+     parsed by the C++ parser (the CLI's first line gives the scene build's
+     seconds); then, with
      PATHS_TPU_SPH_FLAT=1, the CLI on stress-500 at 720x480, 8 spp (K5
      closest-hit, and no K1/K2) and the lit stress scene at 720x480, 4 spp
      (both K5 forms), each image held to its walk-route counterpart (same
@@ -175,6 +185,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -202,7 +213,10 @@ NODE_BYTES = 40  # a node's box, links, first primitive and count (10 floats)
 SPHERE_SLOT_BYTES = 32  # a sphere slot of 8 floats
 TREE_NODE_BYTES = 32  # a walk node [lo.xyz ref | hi.xyz aux]
 BIG = 3.4e38
-SUBSET = 65536  # lanes held against the plain triangle versions
+SUBSET = 65536  # triangle lanes timed and bounded (phases 3b-3e)
+# ... and held against the plain triangle versions on every PLAIN_EVERY-th
+# of them (16,384 lanes: the brute force is most of those phases' time).
+PLAIN_EVERY = 4
 BVH_THRESHOLD = 32768  # build_scene's bvh_threshold for the BVH route (the reference's default)
 # A mesh scene's BVH-route image against its kernel-route image (same seed):
 # K6 and K3/K4 round differently, so a path may part at a grazing hit; the
@@ -323,12 +337,56 @@ class flat_route:
 # ---------------------------------------------------------------- phase 2
 
 def build_all():
-    """Build the four CUDA libraries, csrc/bvh_builder.cc and
-    csrc/cpu_tracer.cc at once (one compiler process each), then bind them;
-    returns {source: seconds}."""
+    """Build the four CUDA libraries, csrc/bvh_builder.cc, csrc/mesh_io.cc
+    and csrc/cpu_tracer.cc at once (one compiler process each), then bind
+    them; returns {source: seconds}."""
     from paths_tpu_torch import native
 
     return native.build_all(verbose=True)
+
+
+# ---------------------------------------------------------------- phase 2b
+
+def parse_meshes():
+    """Phase 2b: both standins' PLYs through the loaders' two parsers, the
+    C++ parser (the default) and the pure-Python path, in turns (C++,
+    Python, Python, C++), each call timed on the host's clock.  Vertices
+    and faces must be equal bit for bit, uchar colours within one ulp in f64
+    and equal in f32 (the C++ parser scales by 1/255, the Python path
+    divides by 255)."""
+    import numpy as np
+
+    from paths_tpu_torch.scene.ply_loader import load_ply_file
+
+    for name in ("doom_standin", "dragon_standin"):
+        path = os.path.join(REPO, "scenes", "assets", f"{name}.ply")
+        secs = {True: [], False: []}
+        got = {}
+        for use_native in (True, False, False, True):
+            t = time.perf_counter()
+            got[use_native] = load_ply_file(path, use_native=use_native)
+            secs[use_native].append(time.perf_counter() - t)
+        c, p = got[True], got[False]
+        for f in ("vertices", "faces"):
+            a, b = getattr(c, f), getattr(p, f)
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"{name}: the two parsers' {f} differ")
+        if (c.vertex_colours is None) != (p.vertex_colours is None):
+            raise AssertionError(f"{name}: one parser found vertex colours")
+        cols = ""
+        if c.vertex_colours is not None:
+            np.testing.assert_array_max_ulp(c.vertex_colours, p.vertex_colours, maxulp=1)
+            if not np.array_equal(c.vertex_colours.astype(np.float32),
+                                  p.vertex_colours.astype(np.float32)):
+                raise AssertionError(f"{name}: the two parsers' f32 colours differ")
+            cols = (f"; colours within 1 ulp in f64 ("
+                    f"{int((c.vertex_colours != p.vertex_colours).sum())} of "
+                    f"{c.vertex_colours.size} values apart) and equal in f32")
+        cc, pp = secs[True], secs[False]
+        log(f"[parse] {name}.ply, {c.vertices.shape[0]} vertices, {c.faces.shape[0]} "
+            f"triangles: C++ parser {cc[0]:.4f}, {cc[1]:.4f} s; pure Python "
+            f"{pp[0]:.4f}, {pp[1]:.4f} s ({min(pp) / min(cc):.1f}x); vertices and faces "
+            f"bit for bit{cols}")
 
 
 # ---------------------------------------------------------------- phases 3/4
@@ -629,33 +687,49 @@ def _families():
     }
 
 
-def measure(kind, label, table, nc, ch_args, ah_args, timer, bound, plain_reps=True):
+def every(args, step):
+    """Every step-th lane of each tensor in args."""
+    return tuple(a[::step].contiguous() for a in args)
+
+
+def measure(kind, label, table, nc, ch_args, ah_args, timer, bound, plain_reps=True,
+            plain_every=1):
     """Hold the closest-hit and any-hit kernels of one family (a key of
-    _families()) against their plain versions on these inputs (equal outputs),
-    time both, and bound both by the work these inputs need.  ch_args = (o,
-    d, excl, t_init); ah_args = (o, d, excl, excl_ent, t_max).  The plain
-    versions are timed like the kernels (plain_reps) or, for the triangle
-    brute force, once.  The bound belongs to the function, not to the table
-    the kernel reads: bound(o, d, t_answer) -> (pairs, table_bytes) counts
-    it on the finest division of the same rows (sphere_leaf_bound,
-    leaf_bound).  Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)}."""
+    _families()) against their plain versions on these inputs (equal outputs;
+    on every plain_every-th lane), time both, and bound both by the work
+    these inputs need.  ch_args = (o, d, excl, t_init); ah_args = (o, d,
+    excl, excl_ent, t_max).  The plain versions are timed like the kernels
+    (plain_reps) or, for the triangle brute force, once.  The bound belongs
+    to the function, not to the table the kernel reads: bound(o, d,
+    t_answer) -> (pairs, table_bytes) counts it on the finest division of
+    the same rows (sphere_leaf_bound, leaf_bound); the any-hit's answer is
+    a lane's nearest occluder where the kernel flags it (which must exist)
+    and its t_max elsewhere.  Returns {name:
+    dict(max_abs_err, ms, plain_ms, plain_lanes, bound_ms, bound_by)}."""
     import torch
 
     rows, (ch_name, ch, ch_plain), (ah_name, ah, ah_plain) = _families()[kind]
     peak_ops, peak_txt = fp32_peak(ch_args[0].device)
     lane_in = 24 + 4 + 4  # o, d, excl, seed
+    held = lambda args: every(args, plain_every)
+    n_plain = held(ch_args)[0].shape[0]
 
     t_hit = ch(table, nc, *ch_args)
-    plain_ch_ms, want = time_once(lambda: ch_plain(table, nc, *ch_args))
-    err_ch = check_equal(f"{ch_name} {label}", t_hit, want)
+    plain_ch_ms, want = time_once(lambda: ch_plain(table, nc, *held(ch_args)))
+    err_ch = check_equal(f"{ch_name} {label}", held(t_hit), want)
     occ = ah(table, nc, *ah_args)
-    plain_ah_ms, want = time_once(lambda: ah_plain(table, nc, *ah_args))
-    err_ah = check_equal(f"{ah_name} {label}", occ, want)
-    t_occ = nearest_occluder(rows, table, nc, *ah_args)
+    plain_ah_ms, want = time_once(lambda: ah_plain(table, nc, *held(ah_args)))
+    err_ah = check_equal(f"{ah_name} {label}", held((occ,)), want)
+    # The any-hit's answer: a flagged lane's nearest occluder (searched on
+    # those lanes only: the search is a brute force), an unflagged lane's
+    # t_max.
     t_max = ah_args[-1]
-    if not torch.equal((t_occ < float("inf")) | (t_max == 0), occ):
-        raise AssertionError(f"{ah_name} {label}: nearest occluders disagree with the flags")
+    flagged = torch.nonzero(occ & (t_max > 0))[:, 0]
+    t_occ = torch.full_like(t_max, float("inf"))
+    t_occ[flagged] = nearest_occluder(rows, table, nc, *(a[flagged] for a in ah_args))
+    if not bool((t_occ[flagged] < float("inf")).all()):
+        raise AssertionError(f"{ah_name} {label}: a flagged lane has no occluder "
+                             "before its t_max")
 
     recs = {}
     for name, run, plain, args, answer, extra_in, out_bytes, err, plain_ms in (
@@ -668,11 +742,11 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, bound, plain_reps=T
         ms = timer(lambda: run(table, nc, *args))
         device_ms = time_device_ms(lambda: run(table, nc, *args))
         if plain_reps:
-            plain_ms = timer(lambda: plain(table, nc, *args))
+            plain_ms = timer(lambda: plain(table, nc, *held(args)))
         pairs, table_bytes = bound(args[0], args[1], answer)
         bound_ms, bound_by = bound_record(rows, n, lane_in + extra_in + out_bytes,
                                           pairs, table_bytes, peak_ops)
-        recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_lanes=n_plain,
                           bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms)
         floor = ""
         if kind == "flat":
@@ -680,25 +754,28 @@ def measure(kind, label, table, nc, ch_args, ah_args, timer, bound, plain_reps=T
             floor_ms = n * n_slots * OPS_PER_MISSED_PAIR / peak_ops * 1e3
             floor = (f"; all-pairs floor {floor_ms:.4f} ms ({n} x {n_slots} "
                      f"pairs x {OPS_PER_MISSED_PAIR} FP32 operations)")
+        on = "" if n_plain == n else f" on {n_plain} of the lanes, equal"
         log(f"[timing] {name}, {label}, {n} lanes: {ms:.4f} ms, device "
             f"{device_ms:.4f} ms (plain "
-            f"{plain_ms:.3f} ms), bound {bound_ms:.4f} ms by {bound_by} "
+            f"{plain_ms:.3f} ms{on}), bound {bound_ms:.4f} ms by {bound_by} "
             f"({pairs} needed pair tests, {table_bytes} needed table bytes; FP32 "
             f"peak {peak_ops / 1e12:.2f} T op/s = {peak_txt}){floor}")
     return recs
 
 
-def measure_packet(label, pbvh, args, timer, bound):
+def measure_packet(label, pbvh, args, timer, bound, plain_every=1):
     """K6 on these inputs (o, d, excl, t_init): held equal to its plain
-    version, the kernel timed (median of 25) and the plain version once,
-    bounded by bound (leaf_bound).  Returns {name: record}."""
+    version (on every plain_every-th lane), the kernel timed (median of 25)
+    and the plain version once, bounded by bound (leaf_bound) on every
+    lane.  Returns {name: record}."""
     import torch
 
     PK = _kernel_modules()[3]
     peak_ops, peak_txt = fp32_peak(args[0].device)
     got = PK.closest_hit_packet(pbvh, *args)
-    plain_ms, want = time_once(lambda: PK.closest_hit_packet_plain(pbvh, *args))
-    err = check_equal(f"packet_closest_hit {label}", got, want)
+    held = every(args, plain_every)
+    plain_ms, want = time_once(lambda: PK.closest_hit_packet_plain(pbvh, *held))
+    err = check_equal(f"packet_closest_hit {label}", every(got, plain_every), want)
     ms = timer(lambda: PK.closest_hit_packet(pbvh, *args))
     device_ms = time_device_ms(lambda: PK.closest_hit_packet(pbvh, *args))
     n = args[0].shape[0]
@@ -706,14 +783,16 @@ def measure_packet(label, pbvh, args, timer, bound):
     bound_ms, bound_by = bound_record("vtri", n, 24 + 4 + 4 + 12, pairs,
                                       table_bytes, peak_ops)
     hits = int((got[0] < BIG).sum().item())
+    n_plain = held[0].shape[0]
+    on = "" if n_plain == n else f" on {n_plain} of the lanes"
     log(f"[timing] packet_closest_hit, {label}, {n} lanes ({hits} hits): {ms:.4f} ms, "
         f"device {device_ms:.4f} ms "
-        f"(plain {plain_ms:.3f} ms, equal), bound {bound_ms:.4f} ms by {bound_by} "
+        f"(plain {plain_ms:.3f} ms{on}, equal), bound {bound_ms:.4f} ms by {bound_by} "
         f"({pairs} needed pair tests, {table_bytes} needed table bytes; FP32 peak "
         f"{peak_ops / 1e12:.2f} T op/s = {peak_txt})")
     return {"packet_closest_hit": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by,
-                                       device_ms=device_ms)}
+                                       plain_lanes=n_plain, bound_ms=bound_ms,
+                                       bound_by=bound_by, device_ms=device_ms)}
 
 
 def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
@@ -1044,15 +1123,19 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
     and on the BVH route (the same BVH, so the same leaves and ids).
 
     3b/4b: K3/K4 timed on a full frame of primary rays and one of incoherent
-    rays, held equal to their plain versions and bounded on SUBSET of those
-    lanes (every (n / (SUBSET/2))-th primary ray and the first SUBSET/2
-    incoherent rays; the primary lanes' any-hit queries take the incoherent
-    set's excl_ent and t_max).  With scan, phases 3d/4d: the same for K7/K9
-    on the table repacked at 32 rows per chunk.  3e/4e: K6 held equal to its
-    plain version on SUBSET primary rays (every (n / SUBSET)-th) and on the
-    first SUBSET incoherent rays (t_init 0 where t_max is), and timed there
-    and on both full frames, with K3 timed on the same rays beside it and
-    its answers held to K6's there (k6_vs_k3).  Every kernel is bounded on the BVH's leaves (leaf_bound): the finest
+    rays, and timed and bounded on SUBSET of those lanes (every (n /
+    (SUBSET/2))-th primary ray and the first SUBSET/2 incoherent rays; the
+    primary lanes' any-hit queries take the incoherent set's excl_ent and
+    t_max), where they are held equal to their plain versions on every
+    PLAIN_EVERY-th lane (both kinds of ray), and every lane the any-hit
+    flags must have an occluder before its t_max.  With scan, phases
+    3d/4d: the same for K7/K9 on the table repacked at 32 rows per chunk.
+    3e/4e: K6
+    timed and bounded on SUBSET primary rays (every (n / SUBSET)-th) and on
+    the first SUBSET incoherent rays (t_init 0 where t_max is), held equal
+    to its plain version on every PLAIN_EVERY-th of each, and timed and held
+    on both full frames, with K3 timed on the same rays beside it and its
+    answers held to K6's there (k6_vs_k3).  Every kernel is bounded on the BVH's leaves (leaf_bound): the finest
     division of the same rows, so one bound per function and rays.  Returns
     per-kernel records at the subsets, with frame_ms added (K6: at the
     incoherent subset, with primary_* and the K3 times beside)."""
@@ -1111,9 +1194,10 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
             f"primary {frame['primary']:.3f} ms ({hits} hits), incoherent "
             f"{frame[ch_name]:.3f} ms; {ah_name} incoherent {frame[ah_name]:.3f} ms")
         fam = measure(kind, f"{label} subset", pt, nc, sub_ch, sub_ah, timer,
-                      plain_reps=False, bound=bound)
-        log(f"[parity] {label}: {kernels} == plain at {SUBSET} lanes x "
-            f"{pt.tris.shape[0] * 8} slots ({rows}-row chunks)")
+                      plain_reps=False, bound=bound, plain_every=PLAIN_EVERY)
+        log(f"[parity] {label}: {kernels} == plain at {SUBSET // PLAIN_EVERY} of the "
+            f"{SUBSET} lanes x {pt.tris.shape[0] * 8} slots ({rows}-row chunks), "
+            f"an occluder for every lane the any-hit flags of all {SUBSET}")
         for name, r in fam.items():
             r["frame_ms"] = frame[name]
         recs.update(fam)
@@ -1149,7 +1233,8 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
     }
     packet = {}
     for which, args in subsets.items():
-        r = measure_packet(f"{label} {which} subset", bscene.pbvh, args, timer, bound)
+        r = measure_packet(f"{label} {which} subset", bscene.pbvh, args, timer, bound,
+                           plain_every=PLAIN_EVERY)
         r = r["packet_closest_hit"]
         r["k3_ms"] = timer(lambda: k3(*args))
         log(f"[timing] tri_closest_hit on the same {SUBSET} {which} lanes: "
@@ -1179,8 +1264,9 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
                          "k3_parts")})
     rec["max_abs_err"] = max(rec["max_abs_err"], *(r["max_abs_err"] for r in packet.values()),
                              hold_adversarial_packet(label, pbvh, bscene, device))
-    log(f"[parity] {label}: K6 == plain at {SUBSET} primary and {SUBSET} incoherent "
-        f"lanes, on both {n}-lane frames and on adversarial lanes "
+    log(f"[parity] {label}: K6 == plain at {SUBSET // PLAIN_EVERY} of the {SUBSET} "
+        f"primary and of the {SUBSET} incoherent lanes, on both {n}-lane frames and on "
+        f"adversarial lanes "
         f"({pbvh.tris.shape[0]} leaf rows)")
     recs["packet_closest_hit"] = rec
     return recs
@@ -1429,20 +1515,37 @@ def dev_us(e):
         e, "self_cuda_time_total", 0)
 
 
-def is_label(e):
+def is_label(key, user_annotation):
     """A range the renderer labels (profiling.labelled), not an operator."""
-    return getattr(e, "is_user_annotation", False) or e.key.startswith("paths_tpu_torch.")
+    return user_annotation or key.startswith("paths_tpu_torch.")
+
+
+class DeviceRow(typing.NamedTuple):
+    """One name's device events in a profile, as a key_averages() row."""
+    key: str
+    count: int
+    self_device_time_total: float  # microseconds
 
 
 def device_rows(prof):
-    """The device-side rows of a profile (kernels, copies) with device time:
-    the operator rows on the host carry the same device time again, and so
-    do the labelled ranges on the device's timeline."""
+    """The device-side rows of a profile (kernels, copies) with device time,
+    one per name, without the labelled ranges on the device's timeline (the
+    operator rows on the host carry the same device time again).  Summed
+    from the profiler's raw events as key_averages() sums them, without the
+    event tree that key_averages() builds first: tens of seconds a
+    main-path tile."""
     import torch
 
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-            and not is_label(e)]
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        key = torch._C._demangle(e.name())
+        if is_label(key, e.is_user_annotation()):
+            continue
+        n, us = rows.get(key, (0, 0.0))
+        rows[key] = (n + 1, us + e.duration_ns() / 1e3)
+    return [DeviceRow(k, n, us) for k, (n, us) in rows.items() if us > 0]
 
 
 def where_time_goes(device, kind, label, make_scene, width=720, height=480,
@@ -1499,8 +1602,7 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
 
     I.path_step = counted_step
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             render_samples(static, scene, cam, px, py, pix, 1, spp, 0)
             torch.cuda.synchronize()
@@ -2269,7 +2371,8 @@ def profile_gradient(device, logdir, width=720, height=480, top=10):
         dev = device_rows(prof)
         host = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CPU
-                and e.self_cpu_time_total > 0 and not is_label(e)]
+                and e.self_cpu_time_total > 0
+                and not is_label(e.key, getattr(e, "is_user_annotation", False))]
         busy_ms = sum(dev_us(e) for e in dev) / 1e3
         host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
         n_kernels = sum(e.count for e in dev)
@@ -2444,14 +2547,26 @@ def main() -> int:
     built = build_all()
     log(f"[build] built and loaded in {time.time() - t:.1f} s (started together): "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
+    t = time.time()
+    parse_meshes()
+    log(f"[main] phase 2b in {time.time() - t:.1f} s")
 
+    t = time.time()
     frame = sphere_kernel_phases(device)
-    mesh = {"doom": tri_kernel_phases(device, DOOM, "doom_standin", scan=True),
-            "dragon": tri_kernel_phases(device, DRAGON, "dragon_standin")}
+    log(f"[main] phases 3/4, 3c/4c and 3g in {time.time() - t:.1f} s")
+    mesh = {}
+    for key, path, label, scan in (("doom", DOOM, "doom_standin", True),
+                                   ("dragon", DRAGON, "dragon_standin", False)):
+        t = time.time()
+        mesh[key] = tri_kernel_phases(device, path, label, scan=scan)
+        log(f"[main] phases 3b-3f on {label} in {time.time() - t:.1f} s")
 
+    t = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         launches, images = main_path(device, tmp)
-    log(f"[main] kernel launches over the ten paths: {launches}")
+    log(f"[main] kernel launches over the ten paths: {launches}; phase 5 in "
+        f"{time.time() - t:.1f} s")
+    t = time.time()
 
     tile = where_time_goes(
         device, "sphere", "lit stress-500",
@@ -2480,9 +2595,14 @@ def main() -> int:
                                        lambda: dragon_bvh, spp=2))
     env_tile = where_time_goes(device, "hdri", "HDRI lit stress-500 env NEE",
                                lambda: hdri_lit_scene(device))
+    log(f"[main] phase 6 in {time.time() - t:.1f} s")
+    t = time.time()
     for route in ("walk", "flat", "bvh", "env"):
         gpu_vs_cpu(device, route)
+    log(f"[main] phase 7 in {time.time() - t:.1f} s")
+    t = time.time()
     hdri_doom(device)
+    log(f"[main] HDRI doom in {time.time() - t:.1f} s")
 
     # Phases 8 and 9: the gradient, resume and progressive paths, each read
     # with the counts set to 0 just before it; their launches join the ten
@@ -2526,11 +2646,14 @@ def main() -> int:
     # primary_* at the primary subset and k3_* for K3 on the same rays).
     # ms is one wrapper call from an idle card, host part included (time_ms);
     # device_ms the card's own time for the same call (time_device_ms).
+    # plain_lanes: the lanes plain_ms ran on (K7/K9's doom subset: every
+    # PLAIN_EVERY-th of its SUBSET lanes; every other: all of them).
     recs = []
     for name in KERNELS:
         at = tile.get(name) or (mesh["doom"] if name.startswith("scan_tri")
                                 else frame)[name]
-        base = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+        base = ("max_abs_err", "ms", "device_ms", "plain_ms", "plain_lanes", "bound_ms",
+                "bound_by")
         r = dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
                  **{k: at[k] for k in base}, library_ms=None)
         if name in tile:

@@ -1,7 +1,8 @@
 """Builds the port's native sources (``csrc/``) at first use and loads them
-with ``ctypes``: the CUDA kernels with ``nvcc`` for ``sm_90a``, and the host
-C++ BVH builder and CPU path tracer (the oracle, ``cpu_render``) with
-``g++``.
+with ``ctypes``: the CUDA kernels with ``nvcc`` for ``sm_90a``, and with
+``g++`` the host C++ BVH builder, the OBJ and PLY parsers
+(``load_obj_native``, ``load_ply_native``) and the CPU path tracer (the
+oracle, ``cpu_render``).
 
 Each library is compiled once per version of its source and flags into
 ``build/paths_tpu_torch/`` beside the package (the file name carries a hash
@@ -32,8 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "paths_tpu_torch"
 # exactly the fused multiply-adds their contract names, as fmaf.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-# The reference's flags for its native BVH builder and CPU tracer
-# (paths_tpu/native/Makefile); ISO C++17 keeps GCC from contracting
+# The reference's flags for its native BVH builder, mesh parsers and CPU
+# tracer (paths_tpu/native/Makefile); ISO C++17 keeps GCC from contracting
 # multiply-adds.
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
              "-pthread", "-shared"]
@@ -52,8 +53,8 @@ def nvcc() -> str:
 def cxx() -> str:
     found = shutil.which("g++")
     if found is None:
-        raise RuntimeError("no C++ compiler (g++) found: the BVH builder "
-                           "and the CPU tracer cannot be built")
+        raise RuntimeError("no C++ compiler (g++) found: the BVH builder, "
+                           "the mesh parsers and the CPU tracer cannot be built")
     return found
 
 
@@ -102,7 +103,7 @@ def load_library(source: str, compiler: str, flags: list[str],
 def build_all(verbose: bool = False) -> dict:
     """Build (or find built) and bind every library of ``csrc/`` at once,
     one compiler process each: the four CUDA libraries, the host BVH
-    builder and the CPU tracer.  Processes that will render together on the
+    builder, the mesh parsers and the CPU tracer.  Processes that will render together on the
     card call it first, so that none of them compiles while the others
     wait.  verbose prints ptxas's report of each kernel.  Returns {source:
     seconds}."""
@@ -117,6 +118,7 @@ def build_all(verbose: bool = False) -> dict:
             "flat_spheres.cu": lambda: CS.build_kernels(verbose),
             "packet_bvh.cu": lambda: PK.build_kernels(verbose),
             "bvh_builder.cc": BB._native_lib,
+            "mesh_io.cc": _mesh_lib,
             "cpu_tracer.cc": _tracer_lib}
 
     def timed(fn):
@@ -127,6 +129,100 @@ def build_all(verbose: bool = False) -> dict:
     with ThreadPoolExecutor(len(jobs)) as ex:
         futures = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
         return {name: f.result() for name, f in futures.items()}
+
+
+_mesh = None
+
+
+def _mesh_lib() -> ctypes.CDLL:
+    global _mesh
+    if _mesh is None:
+        lib = load_library("mesh_io.cc", cxx(), CXX_FLAGS)
+        c = ctypes
+        i64p, i32p = c.POINTER(c.c_int64), c.POINTER(c.c_int32)
+        dp = c.POINTER(c.c_double)
+        lib.paths_obj_load.restype = c.c_void_p
+        lib.paths_obj_load.argtypes = [c.c_char_p, i64p]
+        lib.paths_obj_model_info.restype = c.c_int
+        lib.paths_obj_model_info.argtypes = [c.c_void_p, c.c_int64, i64p, i64p,
+                                             i32p, i32p]
+        lib.paths_obj_model_data.restype = c.c_int
+        lib.paths_obj_model_data.argtypes = [c.c_void_p, c.c_int64, dp, i64p, dp, dp]
+        lib.paths_obj_free.restype = None
+        lib.paths_obj_free.argtypes = [c.c_void_p]
+        lib.paths_ply_load.restype = c.c_void_p
+        lib.paths_ply_load.argtypes = [c.c_char_p, i64p, i64p, i32p]
+        lib.paths_ply_data.restype = c.c_int
+        lib.paths_ply_data.argtypes = [c.c_void_p, dp, i64p, dp]
+        lib.paths_ply_free.restype = None
+        lib.paths_ply_free.argtypes = [c.c_void_p]
+        _mesh = lib
+    return _mesh
+
+
+def _ptr(a, ctype):
+    return None if a is None else a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def load_obj_native(path: str):
+    """Parse an OBJ with the C++ parser (``csrc/mesh_io.cc``, port of
+    ``paths_tpu/native/__init__.py::load_obj_native``): a list of dicts, one
+    a model (vertices (V, 3) f64, faces (F, 3) i64, texcoords (V, 2) f64 or
+    None, diffuse (3,) f64 or None), or None where the parser gives up (a
+    file it cannot read), so that the caller parses it in Python.  A failed
+    build raises."""
+    lib = _mesh_lib()
+    n_models = ctypes.c_int64(0)
+    h = lib.paths_obj_load(os.fsencode(path), ctypes.byref(n_models))
+    if not h:
+        return None
+    try:
+        out = []
+        for i in range(n_models.value):
+            nv, nf = ctypes.c_int64(0), ctypes.c_int64(0)
+            has_uv, has_kd = ctypes.c_int32(0), ctypes.c_int32(0)
+            if lib.paths_obj_model_info(h, i, ctypes.byref(nv), ctypes.byref(nf),
+                                        ctypes.byref(has_uv), ctypes.byref(has_kd)):
+                return None
+            verts = np.empty((nv.value, 3), np.float64)
+            faces = np.empty((nf.value, 3), np.int64)
+            uvs = np.empty((nv.value, 2), np.float64) if has_uv.value else None
+            kd = np.empty(3, np.float64) if has_kd.value else None
+            if lib.paths_obj_model_data(h, i, _ptr(verts, ctypes.c_double),
+                                        _ptr(faces, ctypes.c_int64),
+                                        _ptr(uvs, ctypes.c_double),
+                                        _ptr(kd, ctypes.c_double)):
+                return None
+            out.append(dict(vertices=verts, faces=faces, texcoords=uvs, diffuse=kd))
+        return out
+    finally:
+        lib.paths_obj_free(h)
+
+
+def load_ply_native(path: str):
+    """Parse a PLY with the C++ parser (``csrc/mesh_io.cc``, port of
+    ``paths_tpu/native/__init__.py::load_ply_native``): a dict (vertices
+    (V, 3) f64, faces (F, 3) i64, vertex_colours (V, 3) f64 or None), or
+    None where the parser gives up (a file it cannot read, no end_header, a
+    binary body shorter than its header says), so that the caller parses it
+    in Python.  A failed build raises."""
+    lib = _mesh_lib()
+    nv, nf = ctypes.c_int64(0), ctypes.c_int64(0)
+    has_col = ctypes.c_int32(0)
+    h = lib.paths_ply_load(os.fsencode(path), ctypes.byref(nv), ctypes.byref(nf),
+                           ctypes.byref(has_col))
+    if not h:
+        return None
+    try:
+        verts = np.empty((nv.value, 3), np.float64)
+        faces = np.empty((nf.value, 3), np.int64)
+        cols = np.empty((nv.value, 3), np.float64) if has_col.value else None
+        if lib.paths_ply_data(h, _ptr(verts, ctypes.c_double),
+                              _ptr(faces, ctypes.c_int64), _ptr(cols, ctypes.c_double)):
+            return None
+        return dict(vertices=verts, faces=faces, vertex_colours=cols)
+    finally:
+        lib.paths_ply_free(h)
 
 
 _tracer = None

@@ -1,11 +1,14 @@
-"""Wavefront OBJ loader (pure numpy): a copy of the pure-Python path of
-``paths_tpu/scene/obj_loader.py``.
+"""Wavefront OBJ loader (port of ``paths_tpu/scene/obj_loader.py``).
 
 Replaces the reference's tobj dependency (src/obj.rs:8-67): loads positions,
 faces (fan-triangulated, matching tobj's triangulate=true), texcoords, and
 per-model diffuse materials from .mtl.  Models split on ``o``/``g`` lines
 like tobj, and the reference's "multi-model OBJ expands to multiple objects"
-behaviour (serde.rs:110-138) is preserved downstream.
+behaviour (serde.rs:110-138) is preserved downstream.  As in the reference,
+the C++ parser (``csrc/mesh_io.cc``, through ``native.load_obj_native``)
+reads the file by default, and the pure-numpy path below
+(``use_native=False``) is the semantics reference, bit for bit the same
+arrays; it also reads a file the C++ parser gives up on.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from paths_tpu_torch import native
 
 
 class ObjModel:
@@ -42,9 +47,22 @@ def _parse_mtl(path: str) -> dict[str, np.ndarray]:
     return mats
 
 
-def load_obj_file(path: str) -> list[ObjModel]:
-    """Parse an OBJ file into one or more models (split on o/g); the
-    reference's pure-Python path."""
+def load_obj_file(path: str, use_native: bool = True) -> list[ObjModel]:
+    """Parse an OBJ file into one or more models (split on o/g): with the
+    C++ parser (use_native, the default) unless it gives up on the file,
+    else with the pure-Python path."""
+    if use_native:
+        parsed = native.load_obj_native(path)
+        if parsed is not None:
+            models = []
+            for d in parsed:
+                m = ObjModel()
+                m.vertices = d["vertices"]
+                m.faces = d["faces"]
+                m.texcoords = d["texcoords"]
+                m.diffuse = d["diffuse"]
+                models.append(m)
+            return models
     positions: list[list[float]] = []
     texcoords: list[list[float]] = []
     mtl: dict[str, np.ndarray] = {}

@@ -1,14 +1,22 @@
-"""PLY loader (pure numpy; ascii and binary little/big endian): a copy of
-the pure-Python path of ``paths_tpu/scene/ply_loader.py``.
+"""PLY loader (ascii and binary little/big endian; port of
+``paths_tpu/scene/ply_loader.py``).
 
 Replaces the reference's ply-rs dependency (src/ply.rs:11-74): reads vertex
 positions, triangular faces, and optional uchar vertex colours (red/green/
-blue scaled by 1/255 per ply.rs:62-68).
+blue scaled by 1/255 per ply.rs:62-68).  As in the reference, the C++ parser
+(``csrc/mesh_io.cc``, through ``native.load_ply_native``) reads the file by
+default, and the pure-numpy path below (``use_native=False``) is the
+semantics reference; it also reads a file the C++ parser gives up on, and
+raises the reference's error on a malformed one.  The two return the same
+arrays bit for bit but the uchar colours: the C++ parser scales by 1/255,
+the numpy path divides by 255, one ulp apart in f64 and equal in f32.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from paths_tpu_torch import native
 
 _PLY_TYPES = {
     "char": "i1", "int8": "i1",
@@ -29,8 +37,17 @@ class PlyModel:
         self.vertex_colours = None  # (V, 3) f64 in [0,1] or None
 
 
-def load_ply_file(path: str) -> PlyModel:
-    """Parse a PLY file (the reference's pure-Python path)."""
+def load_ply_file(path: str, use_native: bool = True) -> PlyModel:
+    """Parse a PLY file: with the C++ parser (use_native, the default) unless
+    it gives up on the file, else with the pure-Python path."""
+    if use_native:
+        parsed = native.load_ply_native(path)
+        if parsed is not None:
+            m = PlyModel()
+            m.vertices = parsed["vertices"]
+            m.faces = parsed["faces"]
+            m.vertex_colours = parsed["vertex_colours"]
+            return m
     with open(path, "rb") as f:
         data = f.read()
 

@@ -2,8 +2,8 @@
 # Compare two checkouts of the port end to end on one card, in turns
 # (parent, change, change, parent): the CLI's renders at 720x480 of
 # stress-500 (8 spp), doom_standin (4 spp), dragon_standin (2 spp) and
-# env_demo with --env-nee (4 spp) from each tree, their pixel-samples/s
-# lines, and whether the two trees' PNGs are equal.
+# env_demo with --env-nee (4 spp) from each tree, their "scene built" and
+# pixel-samples/s lines, and whether the two trees' PNGs are equal.
 #
 #   bash scripts/compare_cli.sh PARENT_DIR CHANGE_DIR
 #
@@ -20,7 +20,7 @@ for lab in parent change change parent; do
   for sc in "${SCENES[@]}"; do
     IFS=: read -r tag yml args <<< "$sc"
     # shellcheck disable=SC2086
-    r=$(cd "$D" && python -m paths_tpu_torch.cli $yml -o "$OUT/${tag}_$lab.png" $args 2>&1 | grep "rendered")
+    r=$(cd "$D" && python -m paths_tpu_torch.cli $yml -o "$OUT/${tag}_$lab.png" $args 2>&1 | grep -E "scene built|rendered" | tr '\n' ' ')
     echo "$lab ${yml:-stress-500} $args: $r"
   done
 done

@@ -114,20 +114,20 @@ def test_scene_description_matches_reference():
 
 @pytest.mark.parametrize("name", ["doom_standin.ply", "dragon_standin.ply"])
 def test_ply_loader_matches_reference(name):
-    got = load_ply_file(_asset(name))
-    want = jax_ply(_asset(name), use_native=False)
-    native = jax_ply(_asset(name))
-    for ref in (want, native):
-        np.testing.assert_array_equal(got.vertices, ref.vertices)
-        np.testing.assert_array_equal(got.faces, ref.faces)
-    if name.startswith("doom"):
-        np.testing.assert_array_equal(got.vertex_colours, want.vertex_colours)
-        # The reference's C++ loader scales by 1/255 instead of dividing by
-        # 255: an ulp apart in f64, equal once cast to the scene's f32.
-        np.testing.assert_array_equal(got.vertex_colours.astype(np.float32),
-                                      native.vertex_colours.astype(np.float32))
-    else:
-        assert got.vertex_colours is None and want.vertex_colours is None
+    """Each parser against its counterpart: the pure-Python paths
+    (use_native=False) and the defaults (both packages' copies of the C++
+    parser), each bit for bit.  The C++ parser scales uchar colours by 1/255
+    where the Python path divides by 255, an ulp apart in f64, so neither
+    is held to the other's parser here (tests/test_torch_mesh_io.py)."""
+    for use_native in (False, True):
+        got = load_ply_file(_asset(name), use_native=use_native)
+        want = jax_ply(_asset(name), use_native=use_native)
+        for f in ("vertices", "faces", "vertex_colours"):
+            g, w = getattr(got, f), getattr(want, f)
+            assert (g is None) == (w is None), f
+            if g is not None:
+                assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), f
+        assert (got.vertex_colours is not None) == name.startswith("doom")
 
 
 _OBJ = """mtllib grid.mtl
