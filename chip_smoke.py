@@ -1516,7 +1516,7 @@ def dev_us(e):
 
 
 def is_label(key, user_annotation):
-    """A range the renderer labels (profiling.labelled), not an operator."""
+    """A range the program opens (profiling.span), not an operator."""
     return user_annotation or key.startswith("paths_tpu_torch.")
 
 

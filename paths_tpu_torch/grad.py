@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from paths_tpu_torch import debug
+from paths_tpu_torch import profiling as P
 from paths_tpu_torch.render import render_wave
 from paths_tpu_torch.scene.types import SceneArrays
 
@@ -123,7 +124,8 @@ def _grads(out, params: dict) -> dict:
     `out`, in the parameters' structure."""
     leaves = flatten_params(params)
     wanted = [x for x in leaves if x.requires_grad]
-    got = iter(torch.autograd.grad(out, wanted, allow_unused=True))
+    with P.span("paths_tpu_torch.grad_backward"):
+        got = iter(torch.autograd.grad(out, wanted, allow_unused=True))
     grads = []
     for x in leaves:
         g = next(got) if x.requires_grad else None
@@ -135,9 +137,10 @@ def loss_and_grad(static, scene, cam, px, py, pixel_id, sample_id, seed, target)
     """(loss, grads) for one sample wave: the l2 loss against `target` (N,
     3) and its gradient with respect to every parameter, in the parameters'
     structure, through ``torch.autograd.grad`` on leaf copies of them."""
-    params = leaf_params(get_params(scene))
-    loss = l2_loss(static, params, scene, cam, px, py, pixel_id, sample_id, seed, target)
-    grads = _grads(loss, params)
+    with P.unit():
+        params = leaf_params(get_params(scene))
+        loss = l2_loss(static, params, scene, cam, px, py, pixel_id, sample_id, seed, target)
+        grads = _grads(loss, params)
     debug.check_outputs("loss_and_grad", loss, *flatten_params(grads))
     return loss.detach(), grads
 

@@ -33,6 +33,7 @@ import torch
 
 from paths_tpu_torch import lights as LT
 from paths_tpu_torch import materials as M
+from paths_tpu_torch import profiling as P
 from paths_tpu_torch import sky as SK
 from paths_tpu_torch.geom import sphere as GS
 from paths_tpu_torch.geom import triangle as GT
@@ -350,6 +351,7 @@ def _gather_light(scene: SceneArrays, li):
     )
 
 
+@P.span("paths_tpu_torch.path_step")
 def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
     """Advance every lane's path by one segment (one bounce of trace.rs's
     loop, trace.rs:13-118).
@@ -509,9 +511,10 @@ def fresh_path_state(o, d):
 def lane_uniforms(seed, pixel_id, sample_id):
     """u(bounce, dim) for lanes with identity (pixel_id, sample_id)."""
     def u(bounce, dim):
-        ctr = (H.mul32(H.as_u32(bounce, pixel_id.device), H.DIMS_PER_BOUNCE)
-               + dim) & H.MASK32
-        return H.uniform(seed, pixel_id, sample_id, ctr)
+        with P.span("paths_tpu_torch.rng"):
+            ctr = (H.mul32(H.as_u32(bounce, pixel_id.device), H.DIMS_PER_BOUNCE)
+                   + dim) & H.MASK32
+            return H.uniform(seed, pixel_id, sample_id, ctr)
 
     return u
 

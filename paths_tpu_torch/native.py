@@ -26,6 +26,8 @@ from pathlib import Path
 
 import numpy as np
 
+from paths_tpu_torch import profiling as P
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "paths_tpu_torch"
 
@@ -74,7 +76,10 @@ def load_library(source: str, compiler: str, flags: list[str],
                  verbose: bool = False) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` with ``compiler`` and ``flags`` into a
     shared library (unless this version is already built) and load it.
-    verbose prints the compiler's messages (``-Xptxas=-v`` for nvcc)."""
+    verbose prints the compiler's messages (``-Xptxas=-v`` for nvcc).
+    Adds its seconds and compiles to ``profiling.NATIVE_LOAD_S`` and
+    ``NATIVE_BUILDS`` under `source`."""
+    t = time.perf_counter()
     src = CSRC / source
     # A CUDA source's key covers the headers the kernels share (csrc/*.cuh).
     headers = sorted(CSRC.glob("*.cuh")) if src.suffix == ".cu" else []
@@ -97,7 +102,10 @@ def load_library(source: str, compiler: str, flags: list[str],
         if verbose and res.stderr:
             print(res.stderr.strip())
         os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
-    return ctypes.CDLL(str(so))
+        P.NATIVE_BUILDS[source] = P.NATIVE_BUILDS.get(source, 0) + 1
+    lib = ctypes.CDLL(str(so))
+    P.NATIVE_LOAD_S[source] = P.NATIVE_LOAD_S.get(source, 0.0) + time.perf_counter() - t
+    return lib
 
 
 def build_all(verbose: bool = False) -> dict:

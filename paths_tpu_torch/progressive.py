@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from paths_tpu_torch import camera as C
+from paths_tpu_torch import profiling as P
 from paths_tpu_torch.math import matrix as mat
 from paths_tpu_torch.render import Estimator, render_samples, tiled_pixel_order
 from paths_tpu_torch.sampling import hashing as H
@@ -93,16 +94,19 @@ class ProgressiveRenderer:
     def _dispatch(self):
         """Render the next wave; returns the in-flight record (epoch, lane
         index, n_samples, device tensor)."""
-        if self._preview_pending:
+        preview = self._preview_pending
+        if preview:
             idx, lanes, n_samples = self._prev_idx, self._lanes["preview"], 1
             self._preview_pending = False
         else:
             idx, lanes = slice(None), self._lanes["full"]
             n_samples = self.samples_per_pump
-        col = render_samples(self.static, self.scene, self.cam, *lanes,
-                             self.sample_cursor, n_samples,
-                             epoch_seed(self.seed, self.epoch))
-        if isinstance(idx, slice):
+        with P.unit(), P.span("paths_tpu_torch.dispatch", preview=preview):
+            col = render_samples(self.static, self.scene, self.cam, *lanes,
+                                 self.sample_cursor, n_samples,
+                                 epoch_seed(self.seed, self.epoch))
+        P.count("sent_lane_samples", col.shape[0] * n_samples)
+        if not preview:
             self.sample_cursor += n_samples
         return (self.epoch, idx, n_samples, col)
 
@@ -124,7 +128,9 @@ class ProgressiveRenderer:
             return
         epoch, idx, n_samples, col = pending
         if epoch != self.epoch:
-            return  # stale epoch: the camera moved while in flight
+            # Stale epoch: the camera moved while in flight.
+            P.count("stale_lane_samples", col.shape[0] * n_samples)
+            return
         col = col.cpu().numpy().astype(np.float64)
         ys = self._py[idx]
         xs = self._px[idx]

@@ -19,8 +19,8 @@ import torch
 from paths_tpu_torch import camera as C
 from paths_tpu_torch import debug
 from paths_tpu_torch import integrator as I
+from paths_tpu_torch import profiling as P
 from paths_tpu_torch.math.colour import to_bytes_np
-from paths_tpu_torch.profiling import labelled
 from paths_tpu_torch.sampling import cmj
 from paths_tpu_torch.sampling import hashing as H
 
@@ -36,18 +36,20 @@ def gen_camera_rays(cam: C.Camera, px, py, pixel_id, sample_id, seed):
     """Primary rays for (pixel, sample) lanes: CMJ sensor jitter + CMJ lens
     point -> thin-lens ray (worker.rs:68-77).  pixel_id and sample_id are
     u32 words (int64 tensors).  Returns (o, d, weight)."""
-    pixel_id = H.as_u32(pixel_id)
-    sample_id = H.as_u32(sample_id)
-    s = sample_id % (PAT_M * PAT_N)
-    batch = sample_id // (PAT_M * PAT_N)
-    p_sq = H.hash_u32(seed, pixel_id, batch, _SQUARE_TAG)
-    p_dk = H.hash_u32(seed, pixel_id, batch, _DISK_TAG)
-    sq = cmj.cmj_square(s, PAT_M, PAT_N, p_sq)
-    dk = cmj.cmj_disk(s, PAT_M, PAT_N, p_dk)
+    with P.span("paths_tpu_torch.rng"):
+        pixel_id = H.as_u32(pixel_id)
+        sample_id = H.as_u32(sample_id)
+        s = sample_id % (PAT_M * PAT_N)
+        batch = sample_id // (PAT_M * PAT_N)
+        p_sq = H.hash_u32(seed, pixel_id, batch, _SQUARE_TAG)
+        p_dk = H.hash_u32(seed, pixel_id, batch, _DISK_TAG)
+        sq = cmj.cmj_square(s, PAT_M, PAT_N, p_sq)
+        dk = cmj.cmj_disk(s, PAT_M, PAT_N, p_dk)
     return C.get_rays(cam, px, py, sq, dk)
 
 
-@labelled("paths_tpu_torch.render_wave")
+@P.unit()
+@P.span("paths_tpu_torch.render_wave")
 def render_wave(static, scene, cam: C.Camera, px, py, pixel_id, sample_id,
                 seed) -> torch.Tensor:
     """Radiance estimates for one sample of N pixels: (N, 3)."""
@@ -59,7 +61,8 @@ def render_wave(static, scene, cam: C.Camera, px, py, pixel_id, sample_id,
     return col
 
 
-@labelled("paths_tpu_torch.render_samples")
+@P.unit()
+@P.span("paths_tpu_torch.render_samples")
 def render_samples(static, scene, cam, px, py, pixel_id, sample_start,
                    n_samples: int, seed) -> torch.Tensor:
     """Sum of `n_samples` consecutive radiance samples per pixel lane, as a
@@ -86,7 +89,7 @@ def render_samples(static, scene, cam, px, py, pixel_id, sample_start,
     done = torch.zeros(n, dtype=torch.bool, device=dev)
     state, w = regen(slot)
 
-    while not bool(done.all()):
+    while not _all_done(done):
         u = I.lane_uniforms(seed, pixel_id, (slot + s_start) & H.MASK32)
         state = I.path_step(static, scene, bounce, state, u)
         bounce = bounce + 1
@@ -111,6 +114,13 @@ def render_samples(static, scene, cam, px, py, pixel_id, sample_start,
         state = state[:4] + (state[4] & ~done,) + state[5:]
     debug.check_outputs("render_samples", acc)
     return acc
+
+
+def _all_done(done) -> bool:
+    """Whether every lane has retired: the host waits on the card here,
+    before each iteration of render_samples and once after the last."""
+    with P.span("paths_tpu_torch.wavefront_sync"):
+        return bool(done.all())
 
 
 def tiled_pixel_order(width: int, height: int, tile: int = 32) -> np.ndarray:

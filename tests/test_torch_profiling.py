@@ -1,8 +1,8 @@
 """The port's profiling utilities and debug scope on the CPU (the
 counterparts of tests/test_debug_profiling.py): ``debug.debug_checks`` turns
 on autograd's anomaly detection with NaN checks and the output checks of the
-renderer's entry points, and restores both; ``profiling.trace``,
-``time_jitted``, ``RayCounter`` and the CLI's --profile."""
+renderer's entry points, and restores both; ``profiling.trace`` and the
+CLI's --profile."""
 
 import dataclasses
 import glob
@@ -17,7 +17,7 @@ from paths_tpu_torch import cli
 from paths_tpu_torch import debug
 from paths_tpu_torch import grad as G
 from paths_tpu_torch.debug import debug_checks
-from paths_tpu_torch.profiling import RayCounter, time_jitted, trace
+from paths_tpu_torch.profiling import trace
 from paths_tpu_torch.render import render_image, render_wave
 from paths_tpu_torch.scene.build import build_scene
 from paths_tpu_torch.scene.stress import generate_lit_stress_scene, generate_mixed_scene
@@ -110,17 +110,6 @@ def test_clean_render_and_gradient_pass_debug_checks(lit, tmp_path, scene_name):
                                       torch.zeros((W * H, 3)))
     assert np.isfinite(img).all() and bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(g).all()) for g in G.flatten_params(grads))
-
-
-def test_time_jitted_returns_positive():
-    dt = time_jitted(lambda x: x * 2.0, torch.ones((128, 128)), reps=2)
-    assert dt > 0
-
-
-def test_ray_counter_line():
-    rc = RayCounter()
-    rc.add(720 * 480)
-    assert "1.0/px" in rc.line(720, 480)
 
 
 def _trace_names(logdir):
