@@ -6,7 +6,7 @@
 Phases, one line each (any failure exits non-zero before the last line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
-     csrc/flat_spheres.cu, csrc/packet_bvh.cu; nvcc with
+     csrc/flat_spheres.cu, csrc/packet_bvh.cu, csrc/lane_rng.cu; nvcc with
      ptxas -v, whose registers, stack frame, spills and shared memory are
      printed per kernel), the C++ BVH builder (csrc/bvh_builder.cc, g++),
      the C++ mesh parsers (csrc/mesh_io.cc) and the C++ CPU tracer
@@ -15,6 +15,12 @@ Phases, one line each (any failure exits non-zero before the last line):
      loaders' C++ parser (the default) and their pure-Python path, in turns,
      each call's seconds printed; vertices and faces equal bit for bit,
      uchar colours within one ulp in f64 and equal in f32;
+  2c. the lane RNG (csrc/lane_rng.cu): a shading draw with a per-lane and
+     with a scalar bounce, and a camera sample, held bit for bit against
+     the plain functions (the eager hash and CMJ) on the same card tensors
+     and timed as in 4, beside the byte bound (28, 20 and 32 B a lane over
+     3.35 TB/s), on a main-path tile (65,536 lanes) and a 720x480 frame
+     (345,600);
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
      card, at the stress-500 table and a full 720x480 frame of lanes
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
@@ -79,7 +85,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      each leaf a lane enters before its answer) and the needed bytes (those
      leaves' rows and the compact nodes a lane enters, read once);
   5. main path: each path driven with the launch counts set to 0 just before
-     it and read just after: the CLI renders the 500-sphere stress scene at
+     it and read just after, both lane RNG kernels launched on each: the CLI renders the 500-sphere stress scene at
      720x480, 8 spp (K1); the lit stress scene renders at 720x480, 4 spp
      (K1, K2); the CLI renders scenes/doom_standin.yml at 720x480, 4 spp and
      scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4), their meshes
@@ -94,8 +100,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      K3/K4 not, each image compared with its kernel-route counterpart (same
      seed; relative MSE below BVH_VS_KERNEL_REL_MSE); then the HDRI sky
      with environment NEE: (a) the CLI on scenes/env_demo.yml --env-nee at
-     720x480, 4 spp (three small spheres and the ground: no kernel may
-     launch) and (b) the lit stress scene under scenes/assets/sunrise.hdr
+     720x480, 4 spp (three small spheres and the ground: no traversal
+     kernel may launch) and (b) the lit stress scene under scenes/assets/sunrise.hdr
      with env_nee on (hdri_lit_scene) at 720x480, 4 spp through
      build_scene and render_image (K1; K2 for the light's and the
      environment's shadow queries, so more K2 launches than the lit stress
@@ -168,10 +174,11 @@ Phases, one line each (any failure exits non-zero before the last line):
   version, the images within relative MSE 1e-4.
 Then a JSON line of per-kernel results (launches summed over the paths of
 phases 5, 8 (a, b), 9 and 10 (a, b); ms, device_ms, plain_ms and bound_ms at the main
-path's tile for K1-K6, env_tile_* at configuration (b)'s for K1/K2; at the
+path's tile for K1-K6 and the lane RNG, env_tile_* at configuration (b)'s for K1/K2; at the
 doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
-doom_*/dragon_* at the shapes of 4, 4b, 4d and 4e), the nvidia-smi name/power
+doom_*/dragon_* at the shapes of 2c, 4, 4b, 4d and 4e; the lane RNG's
+scalar_tile_*/scalar_frame_* with a scalar bounce), the nvidia-smi name/power
 line, and the final JSON status line.  Needs one CUDA device.
 """
 
@@ -268,7 +275,22 @@ KERNELS = {
     "packet_closest_hit": dict(
         replaces="paths_tpu/ops/pallas_traverse.py:1094",
         source="paths_tpu_torch/csrc/packet_bvh.cu"),
+    # No TPU kernel: the reference computes these words with elementwise XLA
+    # operations, which its compiler fuses.
+    "rng_uniform": dict(
+        replaces="paths_tpu/sampling/hashing.py:55 (no kernel)",
+        source="paths_tpu_torch/csrc/lane_rng.cu"),
+    "rng_camera": dict(
+        replaces="paths_tpu/sampling/cmj.py:50 (no kernel)",
+        source="paths_tpu_torch/csrc/lane_rng.cu"),
 }
+# The lane RNG's kernels: every path that renders on the card draws.
+RNG_KERNELS = ["rng_uniform", "rng_camera"]
+TRAVERSAL_KERNELS = [k for k in KERNELS if k not in RNG_KERNELS]
+# Bytes a lane of the lane RNG's kernels moves: int64 pixel and sample ids
+# in, and an int64 bounce where it is per lane, an f32 out (a draw); the
+# two ids in and four f32 out (a camera sample).
+RNG_LANE_BYTES = {"lanes": 28, "scalar": 20, "camera": 32}
 FLAT_ENV = "PATHS_TPU_SPH_FLAT"
 DOOM = os.path.join(REPO, "scenes", "doom_standin.yml")
 DRAGON = os.path.join(REPO, "scenes", "dragon_standin.yml")
@@ -289,11 +311,12 @@ def nvidia_smi(query: str) -> str:
 
 def _kernel_modules():
     from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import lane_rng as RNG
     from paths_tpu_torch.ops import packet_traverse as PK
     from paths_tpu_torch.ops import sphere_traverse as ST
     from paths_tpu_torch.ops import tri_traverse as TT
 
-    return ST, TT, CS, PK
+    return ST, TT, CS, PK, RNG
 
 
 def reset_launch_counts():
@@ -337,7 +360,7 @@ class flat_route:
 # ---------------------------------------------------------------- phase 2
 
 def build_all():
-    """Build the four CUDA libraries, csrc/bvh_builder.cc, csrc/mesh_io.cc
+    """Build the five CUDA libraries, csrc/bvh_builder.cc, csrc/mesh_io.cc
     and csrc/cpu_tracer.cc at once (one compiler process each), then bind
     them; returns {source: seconds}."""
     from paths_tpu_torch import native
@@ -651,6 +674,60 @@ def time_once(fn):
     return a.elapsed_time(b), out
 
 
+def lane_rng_phase(device, width=720, height=480, seed=7300000001):
+    """Phase 2c: the lane RNG's kernels held bit for bit against the plain
+    functions (the eager hash and CMJ) on the same card tensors, and timed
+    as 3/4 time the traversal kernels, on a main-path tile (the first 65,536
+    lanes of the tiled pixel order) and on a whole frame (345,600 lanes):
+    a draw with a per-lane int64 bounce and with a scalar bounce, and a
+    camera sample; sample ids 0-31 (both sides of a 4x4 pattern's batch),
+    bounces 0-10.  Returns {kernel: record}: the tile's numbers (a draw's
+    with the per-lane bounce) under the names of the traversal kernels'
+    records, the frame's and the scalar bounce's prefixed."""
+    import numpy as np
+    import torch
+
+    from paths_tpu_torch import render as R
+
+    RNG = _kernel_modules()[4]
+    rng = np.random.default_rng(seed)
+    cam = (R.PAT_M, R.PAT_N, R._SQUARE_TAG, R._DISK_TAG)
+    recs = {k: {"bound_by": "bytes", "max_abs_err": 0.0} for k in RNG_KERNELS}
+    for at, n in (("tile", SUBSET), ("frame", None)):
+        _, _, pid, _ = wave_lanes(width, height, device, n)
+        lanes = pid.shape[0]
+        sid = torch.as_tensor(rng.integers(0, 32, lanes), device=device)
+        bounce = torch.as_tensor(rng.integers(0, 11, lanes), device=device)
+        cases = (("rng_uniform", "lanes", RNG.shading_uniform, RNG.shading_uniform_plain,
+                  (seed, pid, sid, bounce, 6)),
+                 ("rng_uniform", "scalar", RNG.shading_uniform, RNG.shading_uniform_plain,
+                  (seed, pid, sid, 3, 6)),
+                 ("rng_camera", "camera", RNG.camera_cmj, RNG.camera_cmj_plain,
+                  (seed, pid, sid, *cam)))
+        for name, case, kernel, plain, args in cases:
+            def bits(f, args=args):
+                out = f(*args)
+                out = (*out[0], *out[1]) if isinstance(out, tuple) else (out,)
+                return tuple(x.view(torch.int32) for x in out)
+
+            check_equal(f"{name} ({case}, {lanes} lanes)", bits(kernel), bits(plain))
+            row = dict(ms=time_ms(lambda: kernel(*args)),
+                       device_ms=time_device_ms(lambda: kernel(*args)),
+                       plain_ms=time_ms(lambda: plain(*args)),
+                       bound_ms=RNG_LANE_BYTES[case] * lanes / HBM_BYTES_PER_S * 1e3)
+            log(f"[rng] {name} ({case}) == plain on {lanes} lanes; kernel "
+                f"{row['ms']:.4f} ms a call, {row['device_ms'] * 1e3:.3f} us device "
+                f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of its byte bound "
+                f"{row['bound_ms'] * 1e3:.3f} us, {RNG_LANE_BYTES[case]} B a lane); "
+                f"the plain version {row['plain_ms']:.4f} ms a call")
+            prefix = "" if (at, case) in (("tile", "lanes"), ("tile", "camera")) else (
+                f"{at}_" if case != "scalar" else f"scalar_{at}_")
+            recs[name].update({prefix + k: v for k, v in row.items()})
+            if not prefix:
+                recs[name]["plain_lanes"] = lanes
+    return recs
+
+
 def fp32_peak(device):
     """FP32 operations per second with no FMA: SMs x 128 x max SM clock."""
     import torch
@@ -665,7 +742,7 @@ def _families():
     wrapper, plain)).  Every wrapper and plain version takes (table,
     n_chunks, o, d, excl, t_init) or (table, n_chunks, o, d, excl, excl_ent,
     t_max); the flat kernels read table.tris only."""
-    ST, TT, CS, _ = _kernel_modules()
+    ST, TT, CS, _, _ = _kernel_modules()
     rows_only = lambda fn: lambda tab, nc, *a: fn(tab.tris, *a)
     sph_ch = rows_only(ST.closest_hit_spheres_plain)
     sph_ah = rows_only(ST.occludes_spheres_plain)
@@ -804,7 +881,7 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
     per-kernel records."""
     import torch
 
-    ST, _, CS, _ = _kernel_modules()
+    ST, _, CS, _, _ = _kernel_modules()
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_stress_scene
 
@@ -936,7 +1013,7 @@ def hold_adversarial_spheres(ps, nc, ps16, nc16, n_entities, device, n=4096):
     form on the same lanes over ps16 (the same spheres at 16 rows a chunk):
     equal outputs, bit for bit.  Returns the largest absolute difference
     (0)."""
-    ST, _, CS, _ = _kernel_modules()
+    ST, _, CS, _, _ = _kernel_modules()
     ch_args, ah_args, counts = adversarial_sphere_lanes(ps, nc, n, n_entities, device)
     want_ch = ST.closest_hit_spheres_plain(ps.tris, *ch_args)
     want_ah = ST.occludes_spheres_plain(ps.tris, *ah_args)
@@ -1222,7 +1299,7 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
             recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
 
     # 3e/4e: K6 on the BVH route's table, K3 on the same rays beside it.
-    _, TT, _, PK = _kernel_modules()
+    _, TT, _, PK, _ = _kernel_modules()
     k6 = lambda *a: PK.closest_hit_packet(bscene.pbvh, *a)
     k3 = lambda *a: TT.closest_hit_tris(scene.ptris, static.tri_chunks, *a)
     psel = torch.arange(SUBSET, device=device) * (n // SUBSET)
@@ -1287,13 +1364,13 @@ def check_image(name, img):
 
 def drive(name, run, kernels, absent=()):
     """Drive one path with the launch counts set to 0 just before it and read
-    just after; each of `kernels` must have launched, and none of `absent`.
-    Returns (counts, what run returned)."""
+    just after; each of `kernels` and of RNG_KERNELS must have launched,
+    and none of `absent`.  Returns (counts, what run returned)."""
     reset_launch_counts()
     out = run()
     counts = launch_counts()
     log(f"[main] {name}: kernel launches {counts}")
-    for k in kernels:
+    for k in [*kernels, *RNG_KERNELS]:
         if counts[k] <= 0:
             raise AssertionError(f"{k} was not launched on the {name} path")
     for k in absent:
@@ -1428,7 +1505,7 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
         # entity excluded) goes to K2 beside the light's.
         drive("env_demo --env-nee", lambda: timed_cli(
             "env_demo --env-nee", [ENV_DEMO, "--env-nee"] + cli_args("env_demo.png", spp[1]),
-            spp[1]), [], absent=list(KERNELS)),
+            spp[1]), [], absent=TRAVERSAL_KERNELS),
         drive("HDRI lit stress-500 env NEE", lambda: lit(
             "HDRI lit stress-500 env NEE", lambda: hdri_lit_scene(device)), walk),
     ]
@@ -1569,7 +1646,7 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     from paths_tpu_torch import integrator as I
     from paths_tpu_torch.render import render_samples, tiled_pixel_order
 
-    ST, TT, CS, PK = _kernel_modules()
+    ST, TT, CS, PK, _ = _kernel_modules()
     # (module, wrappers, kernel source in the profiler's names, call index of
     # the second bounce iteration's query, per wrapper): K6 takes the
     # closest-hit and the shadow query of every iteration; "hdri" (the lit
@@ -2550,6 +2627,9 @@ def main() -> int:
     t = time.time()
     parse_meshes()
     log(f"[main] phase 2b in {time.time() - t:.1f} s")
+    t = time.time()
+    rng = lane_rng_phase(device)
+    log(f"[main] phase 2c in {time.time() - t:.1f} s")
 
     t = time.time()
     frame = sphere_kernel_phases(device)
@@ -2648,14 +2728,19 @@ def main() -> int:
     # device_ms the card's own time for the same call (time_device_ms).
     # plain_lanes: the lanes plain_ms ran on (K7/K9's doom subset: every
     # PLAIN_EVERY-th of its SUBSET lanes; every other: all of them).
+    # The lane RNG's kernels: ms, device_ms, plain_ms (the eager hash and
+    # CMJ on the same card tensors) and bound_ms at a main-path tile,
+    # frame_* at a frame, scalar_* with a scalar bounce (phase 2c).
     recs = []
     for name in KERNELS:
-        at = tile.get(name) or (mesh["doom"] if name.startswith("scan_tri")
-                                else frame)[name]
+        at = rng.get(name) or tile.get(name) or (
+            mesh["doom"] if name.startswith("scan_tri") else frame)[name]
         base = ("max_abs_err", "ms", "device_ms", "plain_ms", "plain_lanes", "bound_ms",
                 "bound_by")
         r = dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
                  **{k: at[k] for k in base}, library_ms=None)
+        if name in rng:
+            r.update({k: v for k, v in rng[name].items() if k not in base})
         if name in tile:
             r.update({f"tile_{k}": v for k, v in tile[name].items() if k not in base})
         if name in frame:

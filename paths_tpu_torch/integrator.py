@@ -39,6 +39,7 @@ from paths_tpu_torch.geom import sphere as GS
 from paths_tpu_torch.geom import triangle as GT
 from paths_tpu_torch.math import vec
 from paths_tpu_torch.ops import chunk_scan as CS
+from paths_tpu_torch.ops import lane_rng as RNG
 from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
@@ -509,12 +510,11 @@ def fresh_path_state(o, d):
 
 
 def lane_uniforms(seed, pixel_id, sample_id):
-    """u(bounce, dim) for lanes with identity (pixel_id, sample_id)."""
+    """u(bounce, dim) for lanes with identity (pixel_id, sample_id): one
+    launch of ``ops/lane_rng.py``'s kernel a draw on the card."""
     def u(bounce, dim):
         with P.span("paths_tpu_torch.rng"):
-            ctr = (H.mul32(H.as_u32(bounce, pixel_id.device), H.DIMS_PER_BOUNCE)
-                   + dim) & H.MASK32
-            return H.uniform(seed, pixel_id, sample_id, ctr)
+            return RNG.shading_uniform(seed, pixel_id, sample_id, bounce, dim)
 
     return u
 

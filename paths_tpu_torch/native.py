@@ -110,13 +110,14 @@ def load_library(source: str, compiler: str, flags: list[str],
 
 def build_all(verbose: bool = False) -> dict:
     """Build (or find built) and bind every library of ``csrc/`` at once,
-    one compiler process each: the four CUDA libraries, the host BVH
+    one compiler process each: the five CUDA libraries, the host BVH
     builder, the mesh parsers and the CPU tracer.  Processes that will render together on the
     card call it first, so that none of them compiles while the others
     wait.  verbose prints ptxas's report of each kernel.  Returns {source:
     seconds}."""
     from paths_tpu_torch.bvh import build as BB
     from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import lane_rng as RNG
     from paths_tpu_torch.ops import packet_traverse as PK
     from paths_tpu_torch.ops import sphere_traverse as ST
     from paths_tpu_torch.ops import tri_traverse as TT
@@ -125,6 +126,7 @@ def build_all(verbose: bool = False) -> dict:
             "tri_traverse.cu": lambda: TT.build_kernels(verbose),
             "flat_spheres.cu": lambda: CS.build_kernels(verbose),
             "packet_bvh.cu": lambda: PK.build_kernels(verbose),
+            "lane_rng.cu": lambda: RNG.build_kernels(verbose),
             "bvh_builder.cc": BB._native_lib,
             "mesh_io.cc": _mesh_lib,
             "cpu_tracer.cc": _tracer_lib}

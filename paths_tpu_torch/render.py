@@ -21,6 +21,7 @@ from paths_tpu_torch import debug
 from paths_tpu_torch import integrator as I
 from paths_tpu_torch import profiling as P
 from paths_tpu_torch.math.colour import to_bytes_np
+from paths_tpu_torch.ops import lane_rng as RNG
 from paths_tpu_torch.sampling import cmj
 from paths_tpu_torch.sampling import hashing as H
 
@@ -35,16 +36,12 @@ _DISK_TAG = 0xD15C
 def gen_camera_rays(cam: C.Camera, px, py, pixel_id, sample_id, seed):
     """Primary rays for (pixel, sample) lanes: CMJ sensor jitter + CMJ lens
     point -> thin-lens ray (worker.rs:68-77).  pixel_id and sample_id are
-    u32 words (int64 tensors).  Returns (o, d, weight)."""
+    u32 words (int64 tensors); both patterns' points are one launch of
+    ``ops/lane_rng.py``'s kernel on the card.  Returns (o, d, weight)."""
     with P.span("paths_tpu_torch.rng"):
-        pixel_id = H.as_u32(pixel_id)
-        sample_id = H.as_u32(sample_id)
-        s = sample_id % (PAT_M * PAT_N)
-        batch = sample_id // (PAT_M * PAT_N)
-        p_sq = H.hash_u32(seed, pixel_id, batch, _SQUARE_TAG)
-        p_dk = H.hash_u32(seed, pixel_id, batch, _DISK_TAG)
-        sq = cmj.cmj_square(s, PAT_M, PAT_N, p_sq)
-        dk = cmj.cmj_disk(s, PAT_M, PAT_N, p_dk)
+        sq, dk = RNG.camera_cmj(seed, pixel_id, sample_id, PAT_M, PAT_N,
+                                _SQUARE_TAG, _DISK_TAG)
+        dk = cmj.to_disk(*dk)
     return C.get_rays(cam, px, py, sq, dk)
 
 

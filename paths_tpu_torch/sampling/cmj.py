@@ -54,15 +54,15 @@ def cmj(s, m: int, n: int, p):
     return x, y
 
 
-def cmj_square(s, m, n, p):
-    """Square-domain pattern (sampling.rs:238-248)."""
-    return cmj(s, m, n, p)
-
-
 def cmj_disk(s, m, n, p):
     """Disk-domain pattern (sampling.rs:250-265): theta = 2 pi x,
     r = sqrt(y)."""
-    x, y = cmj(s, m, n, p)
+    return to_disk(*cmj(s, m, n, p))
+
+
+def to_disk(x, y):
+    """A square point's polar map onto the unit disk (sampling.rs:250-265):
+    theta = 2 pi x, r = sqrt(y)."""
     theta = (2.0 * math.pi) * x
     r = vec.sqrt(y)
     return r * torch.cos(theta), r * torch.sin(theta)

@@ -15,6 +15,7 @@ from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import packet_traverse as PK
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
+from paths_tpu_torch.sampling import hashing as H
 from tri_walk_cases import full_flat, sphere_ties_case, ties_case
 
 torch.set_num_threads(2)
@@ -611,3 +612,150 @@ def test_packet_kernel_holds_exact_ties(dev, rows):
     for g, w in zip(got, PK.closest_hit_packet_plain(pt, o, d, excl, t_init)):
         assert torch.equal(g, w)
     assert int((got[0] < 3.4e38).sum()) > o.shape[0] // 4
+
+
+# ---------------------------------------------------------------------------
+# The lane RNG (ops/lane_rng.py, csrc/lane_rng.cu): one launch a draw, the
+# plain hash's words bit for bit, against the plain functions on the CPU and
+# the same eager ops on the card.
+
+_EDGE_WORDS = [0, 1, 2**31, 2**32 - 1, 15, 16, 17, 31, 32]
+
+
+def _rng_keys(dev, n=N, seed=0):
+    """(pixel ids, sample ids) as int64 lane tensors on dev and on the CPU: random u32 words with the edge words in both, sample ids on both
+    sides of a CMJ batch boundary (15, 16)."""
+    rng = np.random.default_rng(seed)
+    pix = rng.integers(0, 2**32, n, dtype=np.int64)
+    sid = rng.integers(0, 2**32, n, dtype=np.int64)
+    k = len(_EDGE_WORDS)
+    pix[:k] = _EDGE_WORDS
+    sid[k:2 * k] = _EDGE_WORDS
+    sid[2 * k:2 * k + 64] = rng.integers(0, 40, 64)
+    cpu = torch.as_tensor(pix), torch.as_tensor(sid)
+    return tuple(x.to(dev) for x in cpu), cpu
+
+
+def _same_bits(got, want, name):
+    got, want = got.cpu(), want.cpu()
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    assert bad == 0, f"{name}: {bad} of {got.numel()} lanes differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce_kind", ["scalar", "lanes"])
+def test_lane_rng_uniform_kernel_matches_plain(dev, bounce_kind):
+    from paths_tpu_torch.ops import lane_rng as RNG
+
+    (pix, sid), (pix_c, sid_c) = _rng_keys(dev)
+    if bounce_kind == "scalar":
+        bounces = [(b, b) for b in (0, 3, 10, 2**32 - 1)]
+    else:
+        b = np.random.default_rng(1).integers(0, 12, N)
+        b[:3] = [2**31, 2**32 - 1, 429496729]  # ctr wraps mod 2^32
+        b_c = torch.as_tensor(b)
+        bounces = [(b_c.to(dev), b_c)]
+    for seed in (0, 2**31, 2**32 - 1, 7300000001):
+        for bounce, bounce_c in bounces:
+            for dim in range(10):
+                got = RNG.shading_uniform(seed, pix, sid, bounce, dim)
+                assert got.device == pix.device and got.dtype == torch.float32
+                want = RNG.shading_uniform_plain(seed, pix_c, sid_c, bounce_c, dim)
+                _same_bits(got, want, f"uniform dim {dim} vs the CPU")
+                eager = RNG.shading_uniform_plain(seed, pix, sid, bounce, dim)
+                _same_bits(got, eager, f"uniform dim {dim} vs the card's eager ops")
+                # The word: the top 24 bits of the hash, exact in f32.
+                words = H.hash_u32(seed, pix_c, sid_c, H.as_u32(
+                    (H.mul32(H.as_u32(bounce_c), 10) + dim) & H.MASK32)) >> 8
+                assert torch.equal((got.cpu().double() * 2**24).to(torch.int64), words)
+
+
+@pytest.mark.cuda
+def test_lane_rng_camera_kernel_matches_plain(dev):
+    from paths_tpu_torch import render as R
+    from paths_tpu_torch.ops import lane_rng as RNG
+
+    (pix, sid), (pix_c, sid_c) = _rng_keys(dev)
+    args = (R.PAT_M, R.PAT_N, R._SQUARE_TAG, R._DISK_TAG)
+    for seed in (0, 2**31, 2**32 - 1, 7300000001):
+        got = RNG.camera_cmj(seed, pix, sid, *args)
+        want = RNG.camera_cmj_plain(seed, pix_c, sid_c, *args)
+        eager = RNG.camera_cmj_plain(seed, pix, sid, *args)
+        names = ("square x", "square y", "disk x", "disk y")
+        for name, g, w, e in zip(names, (*got[0], *got[1]), (*want[0], *want[1]),
+                                 (*eager[0], *eager[1])):
+            _same_bits(g, w, f"{name} vs the CPU")
+            _same_bits(g, e, f"{name} vs the card's eager ops")
+
+
+@pytest.mark.cuda
+def test_lane_rng_counts_one_launch_a_draw(dev):
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import integrator as I
+    from paths_tpu_torch import render as R
+    from paths_tpu_torch.ops import lane_rng as RNG
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_stress_scene
+
+    (pix, sid), _ = _rng_keys(dev)
+    RNG.reset_launch_counts()
+    u = I.lane_uniforms(5, pix, sid)
+    u(0, H.DIM_LOBE)
+    u(torch.zeros_like(pix), H.DIM_RR)
+    assert RNG.LAUNCHES == {"rng_uniform": 2, "rng_camera": 0}
+    _, _, cam = build_scene(generate_stress_scene(8, seed=1), device=dev)
+    cam = C.resize(cam, 64, 64)
+    R.gen_camera_rays(cam, (pix % 64).to(torch.int32), (pix // 64 % 64).to(torch.int32),
+                      pix, sid, 5)
+    assert RNG.LAUNCHES == {"rng_uniform": 2, "rng_camera": 1}
+
+
+@pytest.mark.cuda
+def test_lane_rng_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from paths_tpu_torch.ops import lane_rng as RNG
+
+    (pix, sid), (pix_c, _) = _rng_keys(dev)
+    with pytest.raises(TypeError):
+        RNG.shading_uniform(torch.tensor(3, device=dev), pix, sid, 0, 0)
+    with pytest.raises(TypeError):
+        RNG.shading_uniform(3, pix, sid.to(torch.float32), 0, 0)
+    with pytest.raises(TypeError):
+        RNG.shading_uniform(3, pix, sid, sid.to(torch.int32), 0)
+    with pytest.raises(TypeError):
+        RNG.camera_cmj(3, pix.to(torch.int32), sid, 4, 4, 1, 2)
+    with pytest.raises(ValueError):
+        RNG.shading_uniform(3, pix, pix_c, 0, 0)
+    with pytest.raises(ValueError):
+        RNG.shading_uniform(3, pix, sid[:-1], 0, 0)
+    with pytest.raises(ValueError):
+        RNG.camera_cmj(3, pix, sid, 3, 4, 1, 2)
+
+
+@pytest.mark.cuda
+def test_render_samples_with_the_lane_rng_kernel_equals_the_eager_hash(dev, monkeypatch):
+    """A stress-500 tile's accumulated radiance at a fixed seed, byte for
+    byte the same with the kernel as with the eager hash and CMJ on the
+    card."""
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import render as R
+    from paths_tpu_torch.ops import lane_rng as RNG
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_stress_scene
+
+    static, scene, cam = build_scene(generate_stress_scene(500), device=dev)
+    cam = C.resize(cam, 180, 120)
+    pix = torch.as_tensor(R.tiled_pixel_order(180, 120).astype(np.int64), device=dev)
+    px, py = (pix % 180).to(torch.int32), (pix // 180).to(torch.int32)
+
+    def render():
+        return R.render_samples(static, scene, cam, px, py, pix, 14, 4, 7300000001)
+
+    RNG.reset_launch_counts()
+    kernel = render()
+    assert RNG.LAUNCHES["rng_uniform"] > 0 and RNG.LAUNCHES["rng_camera"] > 0
+    monkeypatch.setattr(RNG, "shading_uniform", RNG.shading_uniform_plain)
+    monkeypatch.setattr(RNG, "camera_cmj", RNG.camera_cmj_plain)
+    RNG.reset_launch_counts()
+    eager = render()
+    assert RNG.LAUNCHES == {"rng_uniform": 0, "rng_camera": 0}
+    assert kernel.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()

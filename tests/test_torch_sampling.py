@@ -6,6 +6,8 @@ transforms must match bit for bit.  Camera rays are held to atol 1e-6: the
 lens sample's sin/cos may differ by an ulp between XLA and PyTorch.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from paths_tpu.sampling import hashing as jh
 from paths_tpu_torch import camera as TC
 from paths_tpu_torch import render as TR
 from paths_tpu_torch.math import ds as tds
+from paths_tpu_torch.ops import lane_rng as RNG
 from paths_tpu_torch.sampling import cmj as tcmj
 from paths_tpu_torch.sampling import hashing as th
 
@@ -120,3 +123,76 @@ def test_camera_rays(name):
                              _t(pix), _t(sid), 9)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
+
+
+# The lane RNG's wrapper (ops/lane_rng.py): on CPU tensors, the plain
+# functions exactly; its kernel (csrc/lane_rng.cu) holds the same constants.
+
+_EDGE_WORDS = [0, 1, 2**31, 2**32 - 1, 15, 16]
+
+
+def _lane_keys(rng, n=2048):
+    pix, sid = _words(rng, n), _words(rng, n)
+    pix[:len(_EDGE_WORDS)] = _EDGE_WORDS
+    sid[len(_EDGE_WORDS):2 * len(_EDGE_WORDS)] = _EDGE_WORDS
+    return pix, sid
+
+
+@pytest.mark.parametrize("bounce_kind", ["scalar", "lanes"])
+@pytest.mark.parametrize("dim", range(th.DIMS_PER_BOUNCE))
+def test_lane_rng_uniform_is_the_plain_hash(dim, bounce_kind):
+    rng = np.random.default_rng(100 + dim)
+    pix, sid = _lane_keys(rng)
+    if bounce_kind == "scalar":
+        bounce = 7
+        ctr = np.full(len(pix), 7 * th.DIMS_PER_BOUNCE + dim, np.uint64)
+    else:
+        bounce = rng.integers(0, 12, len(pix)).astype(np.uint64)
+        bounce[:3] = [0, 2**31, 2**32 - 1]  # ctr wraps mod 2^32
+        ctr = (bounce * th.DIMS_PER_BOUNCE + dim) & th.MASK32
+        bounce = _t(bounce)
+    for seed in (0, 2**31, 2**32 - 1, 12345):
+        got = RNG.shading_uniform(seed, _t(pix), _t(sid), bounce, dim)
+        want = th.uniform(seed, _t(pix), _t(sid), _t(ctr))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        ref = jh.uniform(jnp.uint32(seed), jnp.asarray(pix), jnp.asarray(sid),
+                         jnp.asarray(ctr.astype(np.uint32)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_lane_rng_camera_is_the_plain_cmj():
+    rng = np.random.default_rng(11)
+    pix, sid = _lane_keys(rng)
+    for seed in (0, 2**31, 2**32 - 1, 9):
+        (sx, sy), (dx, dy) = RNG.camera_cmj(seed, _t(pix), _t(sid), TR.PAT_M,
+                                            TR.PAT_N, TR._SQUARE_TAG, TR._DISK_TAG)
+        s, batch = _t(sid % 16), _t(sid // 16)
+        for tag, gx, gy in ((TR._SQUARE_TAG, sx, sy), (TR._DISK_TAG, dx, dy)):
+            p = th.hash_u32(seed, _t(pix), batch, tag)
+            wx, wy = tcmj.cmj(s, 4, 4, p)
+            np.testing.assert_array_equal(gx.numpy(), wx.numpy())
+            np.testing.assert_array_equal(gy.numpy(), wy.numpy())
+            jx, jy = jcmj.cmj(jnp.asarray((sid % 16).astype(np.uint32)), 4, 4,
+                              jnp.asarray(p.numpy().astype(np.uint32)))
+            np.testing.assert_array_equal(gx.numpy(), np.asarray(jx))
+            np.testing.assert_array_equal(gy.numpy(), np.asarray(jy))
+
+
+def test_lane_rng_kernel_holds_the_plain_constants():
+    """Every hex constant of hashing.py and cmj.py (but the word masks),
+    DIMS_PER_BOUNCE and the renderer's two pattern tags appear in
+    csrc/lane_rng.cu, so a drift on one side fails without a card."""
+    import inspect
+    import re
+
+    src = (Path(RNG.__file__).parents[1] / "csrc" / "lane_rng.cu").read_text()
+    in_cu = {int(h, 16) for h in re.findall(r"0x([0-9A-Fa-f]+)", src)}
+    wanted = set()
+    for mod in (th, tcmj):
+        wanted |= {int(h, 16) for h in re.findall(r"0x([0-9A-Fa-f]+)", inspect.getsource(mod))}
+    wanted -= {0xFFFF, th.MASK32}
+    assert len(wanted) >= 12  # the regex found the constants
+    wanted |= {TR._SQUARE_TAG, TR._DISK_TAG}
+    assert wanted <= in_cu, sorted(hex(w) for w in wanted - in_cu)
+    assert f"kDimsPerBounce = {th.DIMS_PER_BOUNCE};" in src
