@@ -3,7 +3,9 @@
 
 Reference: src/geom.rs:208-235 (f64 quadratic).  The discriminant and roots
 are evaluated in double-single arithmetic (``math/ds.py``) so radius-1e6
-ground spheres keep the scene's scale.
+ground spheres keep the scene's scale; a centre that float32 does not hold
+(the ground at y -1000002.8) takes its low part too, so that the sphere
+lies where the scene's float64 numbers put it.
 
 Semantics matched to the reference:
   disc = (l.oc)^2 - oc.oc + r^2      (oc = o - c)
@@ -23,13 +25,18 @@ from paths_tpu_torch.math import vec
 BIG = 3.4e38  # rounds to the f32 value 3.4e38 the reference uses
 
 
-def intersect(o, d, center, radius):
+def intersect(o, d, center, radius, center_lo=None):
     """Batched ray/sphere test.  o, d: (..., 3); center (..., 3) and radius
-    (...) broadcast against the rays.  Returns (t, hit); t = BIG on a
-    miss."""
+    (...) broadcast against the rays; center_lo, shaped as center, is the
+    centre's low part (the centre is center + center_lo), or None.  Returns
+    (t, hit); t = BIG on a miss."""
     och, ocl = [], []
     for i in range(3):
         h, l = ds.two_sum(o[..., i], -center[..., i])
+        if center_lo is not None:
+            # A correction below ulp(h): left in the low word unnormalised,
+            # as the products below take it to first order.
+            l = l - center_lo[..., i]
         och.append(h)
         ocl.append(l)
 

@@ -13,7 +13,8 @@ bounce, dim), see ``sampling/hashing.py``.
 
 With ``SceneStatic.env_nee`` on an HDRI sky, each bounce also samples the
 sky for direct light (``sky.sample_env``) and sends a second shadow query,
-unbounded and excluding no entity, through ``occluded_query``.
+unbounded and excluding no entity, through ``occluded_query``; the block is
+the span ``paths_tpu_torch.env_nee`` (``profiling.py``).
 
 Closest-hit and shadow queries over the small spheres and the triangles go
 to the traversal kernels (``ops/sphere_traverse.py``,
@@ -61,8 +62,8 @@ KIND_TRI = 2
 _SPH_STEP = 64
 
 
-def _scan_spheres(scene: SceneArrays, lo: int, hi: int, o, d, excl_kind,
-                  excl_idx, t_best, i_best):
+def _scan_spheres(static: SceneStatic, scene: SceneArrays, lo: int, hi: int, o, d,
+                  excl_kind, excl_idx, t_best, i_best):
     """Closest hit among spheres [lo, hi) by the double-single test, merged
     into (t_best, i_best): a sphere wins where its t is strictly below the
     running best, the lowest index among equal t (the reference's unrolled
@@ -72,7 +73,8 @@ def _scan_spheres(scene: SceneArrays, lo: int, hi: int, o, d, excl_kind,
         b = min(a + _SPH_STEP, hi)
         t, hit = GS.intersect(o[:, None, :], d[:, None, :],
                               scene.sph_center[None, a:b],
-                              scene.sph_radius[None, a:b])
+                              scene.sph_radius[None, a:b],
+                              scene.sph_center_lo[None, a:b] if static.sph_lo else None)
         ids = torch.arange(a, b, dtype=torch.int32, device=o.device)
         ok = hit & ~(excl[:, None] & (excl_idx[:, None] == ids[None, :]))
         t = torch.where(ok, t, BIG)
@@ -93,10 +95,10 @@ def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
     t_best = torch.full((n,), BIG, device=o.device)
     i_best = torch.zeros(n, dtype=torch.int32, device=o.device)
     if static.sph_chunks == 0:
-        t_best, i_best = _scan_spheres(scene, 0, static.n_spheres, o, d,
+        t_best, i_best = _scan_spheres(static, scene, 0, static.n_spheres, o, d,
                                        excl_kind, excl_idx, t_best, i_best)
         return t_best, i_best, scene.sph_ent[i_best]
-    t_best, i_best = _scan_spheres(scene, 0, static.n_sph_big, o, d,
+    t_best, i_best = _scan_spheres(static, scene, 0, static.n_sph_big, o, d,
                                    excl_kind, excl_idx, t_best, i_best)
     e_best = scene.sph_ent[i_best]
     excl_i = torch.where(excl_kind == KIND_SPHERE, excl_idx, -1).to(torch.int32)
@@ -204,7 +206,8 @@ def occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
         excl_s = excl_kind == KIND_SPHERE
         n_scan = static.n_sph_big if static.sph_chunks else static.n_spheres
         for s in range(n_scan):
-            t, hit = GS.intersect(o, d, scene.sph_center[s], scene.sph_radius[s])
+            t, hit = GS.intersect(o, d, scene.sph_center[s], scene.sph_radius[s],
+                                  scene.sph_center_lo[s] if static.sph_lo else None)
             occ = occ | (hit & (t < t_max) & ~(excl_s & (excl_idx == s))
                          & (scene.sph_ent[s] != excl_ent))
         if static.sph_chunks:
@@ -434,25 +437,26 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
     # reference package's extension; upstream only collects the sky on a
     # miss) ----
     if env_nee:
-        e_dir, e_inv_pdf, e_rad = SK.sample_env(
-            scene.sky, u(bounce, H.DIM_ENV_CDF), u(bounce, H.DIM_ENV_JX),
-            u(bounce, H.DIM_ENV_JY))
-        e_shadow_dir = -e_dir  # surface -> sky
-        e_shadow_o = location + normal * SHADOW_EPS
-        e_cos = vec.dot(normal, e_shadow_dir)
-        e_brdf = M.eval_brdf(mat, vec_out, e_dir, normal)
-        e_direct = e_rad * e_brdf * e_inv_pdf[..., None]
-        # Any hit at all blocks the sky: t_max BIG and no entity excluded,
-        # as (N,) lanes, as the wrappers take them.
-        e_want = alive & (e_cos > 0.0) & (vec.max_component(e_direct) > 0.0)
-        e_o_eff = torch.where(e_want[..., None], e_shadow_o, DEAD_ORIGIN)
-        n = o.shape[0]
-        e_occ = occluded_query(
-            static, scene, e_o_eff, e_shadow_dir, hit["kind"], hit["idx"],
-            torch.full((n,), BIG, device=o.device),
-            torch.full((n,), -1, dtype=torch.int32, device=o.device))
-        e_ok = e_want & ~e_occ
-        colour = colour + torch.where(e_ok[..., None], e_direct * throughput, 0.0)
+        with P.span("paths_tpu_torch.env_nee"):
+            e_dir, e_inv_pdf, e_rad = SK.sample_env(
+                scene.sky, u(bounce, H.DIM_ENV_CDF), u(bounce, H.DIM_ENV_JX),
+                u(bounce, H.DIM_ENV_JY))
+            e_shadow_dir = -e_dir  # surface -> sky
+            e_shadow_o = location + normal * SHADOW_EPS
+            e_cos = vec.dot(normal, e_shadow_dir)
+            e_brdf = M.eval_brdf(mat, vec_out, e_dir, normal)
+            e_direct = e_rad * e_brdf * e_inv_pdf[..., None]
+            # Any hit at all blocks the sky: t_max BIG and no entity excluded,
+            # as (N,) lanes, as the wrappers take them.
+            e_want = alive & (e_cos > 0.0) & (vec.max_component(e_direct) > 0.0)
+            e_o_eff = torch.where(e_want[..., None], e_shadow_o, DEAD_ORIGIN)
+            n = o.shape[0]
+            e_occ = occluded_query(
+                static, scene, e_o_eff, e_shadow_dir, hit["kind"], hit["idx"],
+                torch.full((n,), BIG, device=o.device),
+                torch.full((n,), -1, dtype=torch.int32, device=o.device))
+            e_ok = e_want & ~e_occ
+            colour = colour + torch.where(e_ok[..., None], e_direct * throughput, 0.0)
 
     # ---- BSDF sample & bounce (trace.rs:84-101) ----
     new_dir, pdf, brdf, is_spec = M.sample(

@@ -286,7 +286,8 @@ def cpu_render(static, scene, cam, width: int, height: int, spp: int,
         [float(x) for x in (cam.focal_length, cam.distance_from_lens, cam.aperture,
                             cam.sensor_width, cam.sensor_height)]])
     n_sph, n_tri, n_lights = static.n_spheres, static.n_tris, static.n_lights
-    sph = (f64(scene.sph_center, n_sph), f64(scene.sph_radius, n_sph),
+    sph = (f64(scene.sph_center, n_sph) + f64(scene.sph_center_lo, n_sph),
+           f64(scene.sph_radius, n_sph),
            i32(scene.sph_ent, n_sph))
     tris = (f64(scene.tri_v0, n_tri), f64(scene.tri_v1, n_tri), f64(scene.tri_v2, n_tri),
             f64(scene.tri_n, n_tri),

@@ -237,7 +237,7 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
         big = (sphr > 1e3) | (np.abs(sphc).max(axis=1) > 1e3)
         if int((~big).sum()) > KERNEL_MIN_SPHERES:
             order = np.concatenate([np.nonzero(big)[0], np.nonzero(~big)[0]])
-            sphc, sphr, sphe = sphc[order], sphr[order], sphe[order]
+            sphc, sphr, sphe, big = sphc[order], sphr[order], sphe[order], big[order]
             n_sph_big = int(big.sum())
             psph, sph_chunks, sorder = ST.pack_spheres_chunked(
                 sphc[n_sph_big:], sphr[n_sph_big:], ent=sphe[n_sph_big:],
@@ -252,8 +252,13 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
             # The opt-in flat sphere kernel, as the reference resolves it.
             sph_flat = (os.environ.get("PATHS_TPU_SPH_FLAT") == "1"
                         and psph.tris.shape[0] <= CS.SPH_FLAT_MAX_ROWS)
+        # A big sphere's centre as float32 plus the rest (the ground at
+        # y -1000002.8 is -1000002.8125 + 0.0125): the double-single test
+        # takes both, so the sphere lies where the scene puts it.
+        sphc_lo = np.where(big[:, None], sphc - sphc.astype(np.float32), 0.0)
     else:
         sphc = np.zeros((1, 3)); sphr = np.zeros(1); sphe = np.zeros(1, np.int64)
+        sphc_lo = np.zeros((1, 3))
 
     # ---- triangles: BVH order, then the kernel table or the BVH route ----
     ptris = None
@@ -323,6 +328,7 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
 
     arrays = SceneArrays(
         sph_center=f32(sphc), sph_radius=f32(sphr), sph_ent=i32(sphe),
+        sph_center_lo=f32(sphc_lo),
         tri_v0=f32(tri["v0"]), tri_v1=f32(tri["v1"]), tri_v2=f32(tri["v2"]),
         tri_n=f32(tri["n"]),
         tri_vn0=f32(tri["vn0"]), tri_vn1=f32(tri["vn1"]), tri_vn2=f32(tri["vn2"]),
@@ -353,6 +359,7 @@ def build_scene(sd: D.SceneDescription, device=None, bvh_threshold=None):
         has_fresnel=has_fresnel,
         sph_chunks=sph_chunks,
         n_sph_big=n_sph_big,
+        sph_lo=bool(np.any(sphc_lo != 0.0)),
         sph_flat=sph_flat,
         n_tris=n_tris,
         tri_chunks=tri_chunks,

@@ -77,12 +77,9 @@ def load_hdr(path: str) -> np.ndarray:
     return mantissa * scale[..., None]
 
 
-def write_hdr(path: str, image: np.ndarray):
-    """Write (H, W, 3) linear RGB to a flat (non-RLE) Radiance HDR file.
-
-    Inverse of load_hdr's RGBE decode; used by tests and asset generators
-    (the reference ships .hdr skyboxes it does not bundle,
-    scenes/environment.yml:13-14)."""
+def to_rgbe(image: np.ndarray) -> np.ndarray:
+    """(H, W, 4) uint8 RGBE of (H, W, 3) linear RGB: the inverse of
+    load_hdr's decode, the largest channel's exponent shared."""
     img = np.asarray(image, np.float32)
     h, w = img.shape[0], img.shape[1]
     maxc = img.max(axis=-1)
@@ -95,8 +92,65 @@ def write_hdr(path: str, image: np.ndarray):
     rgbe = np.zeros((h, w, 4), np.uint8)
     rgbe[..., :3] = np.clip(np.rint(img * scale[..., None]), 0, 255).astype(np.uint8)
     rgbe[..., 3] = exp.astype(np.uint8)
+    return rgbe
+
+
+def write_hdr(path: str, image: np.ndarray):
+    """Write (H, W, 3) linear RGB to a flat (non-RLE) Radiance HDR file.
+
+    Inverse of load_hdr's RGBE decode; used by tests and asset generators
+    (the reference ships .hdr skyboxes it does not bundle,
+    scenes/environment.yml:13-14)."""
+    rgbe = to_rgbe(image)
+    h, w = rgbe.shape[0], rgbe.shape[1]
     with open(path, "wb") as f:
         f.write(b"#?RADIANCE\n")
         f.write(b"FORMAT=32-bit_rle_rgbe\n\n")
         f.write(f"-Y {h} +X {w}\n".encode())
         f.write(rgbe.tobytes())
+
+
+def _rle_channel(row: bytes) -> bytes:
+    """New-style RLE bytes of one component of a scanline: runs of 4 to 127
+    equal bytes as (128 + n, byte), everything else as literals of at most
+    128 bytes (count, bytes)."""
+    out = bytearray()
+    n, x, lit = len(row), 0, 0  # lit: start of the pending literal
+    while x < n:
+        run = 1
+        while x + run < n and run < 127 and row[x + run] == row[x]:
+            run += 1
+        if run < 4:
+            x += run
+            continue
+        while lit < x:
+            k = min(128, x - lit)
+            out += bytes([k]) + row[lit:lit + k]
+            lit += k
+        out += bytes([128 + run, row[x]])
+        x += run
+        lit = x
+    while lit < n:
+        k = min(128, n - lit)
+        out += bytes([k]) + row[lit:lit + k]
+        lit += k
+    return bytes(out)
+
+
+def write_hdr_rle(path: str, image: np.ndarray):
+    """Write (H, W, 3) linear RGB as a Radiance HDR file with new-style RLE
+    scanlines (each a 2, 2, width marker, then its four components
+    run-length encoded in turn), which load_hdr reads.  The width must lie
+    in [8, 32767]."""
+    rgbe = to_rgbe(image)
+    h, w = rgbe.shape[0], rgbe.shape[1]
+    if not 8 <= w <= 32767:
+        raise ValueError(f"RLE scanlines need a width in [8, 32767], not {w}")
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\n")
+        f.write(b"FORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        for y in range(h):
+            f.write(bytes([2, 2, w >> 8, w & 255]))
+            for c in range(4):
+                f.write(_rle_channel(rgbe[y, :, c].tobytes()))

@@ -43,6 +43,9 @@ class SceneArrays(NamedTuple):
     sph_center: torch.Tensor  # (S, 3)
     sph_radius: torch.Tensor  # (S,)
     sph_ent: torch.Tensor  # (S,) int32 entity index
+    # A big sphere's centre less sph_center (the float64 centre's low part,
+    # for the double-single test); zero on the other spheres.
+    sph_center_lo: torch.Tensor  # (S, 3)
 
     # Triangles in world space, in the BVH's order when the scene packed
     # them (so packed gids index these arrays directly).
@@ -116,6 +119,9 @@ class SceneStatic:
     # Spheres [0, n_sph_big) are big or far and stay on the double-single
     # path even when the kernel runs.
     n_sph_big: int = 0
+    # Some big sphere's centre has a low part (SceneArrays.sph_center_lo):
+    # the double-single test takes it.
+    sph_lo: bool = False
     # The small spheres take the flat kernel (K5, ops/chunk_scan.py) instead
     # of the chunk walk (K1/K2): PATHS_TPU_SPH_FLAT=1 at build and a table of
     # at most SPH_FLAT_MAX_ROWS rows.
@@ -154,7 +160,9 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
     """Build the port's scene from the reference package's scene given as
     numpy: ``static_fields`` is its SceneStatic as a dict (fields the port
     has no counterpart for are ignored), ``arrays`` maps each SceneArrays
-    field name to an array, with ``sky.colour_a``/``sky.colour_b`` for the
+    field name to an array (but ``sph_center_lo``: the reference package
+    keeps the centres in float32, so the low parts are 0), with
+    ``sky.colour_a``/``sky.colour_b`` for the
     sky and, when given, ``sky.image``/``sky.env_cdf``/``sky.env_inv_pdf``
     (an HDRI sky's image and tables; without them, the flat and gradient
     skies' 1x1 stand-ins), ``psph.tris``/``psph.chunk_meta`` for the
@@ -205,6 +213,8 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device):
             )
         elif name == "pbvh":
             fields[name] = _pack_reference_bvh(arrays, device)
+        elif name == "sph_center_lo":
+            fields[name] = tensor(np.zeros_like(arrays["sph_center"]))
         else:
             fields[name] = tensor(arrays[name])
     return static, SceneArrays(**fields)

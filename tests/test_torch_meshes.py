@@ -272,6 +272,9 @@ def _check_build(got, want):
         g, w = getattr(scene, name), getattr(jscene, name, None)
         if name == "sky":
             pairs = [(g.colour_a, w.colour_a), (g.colour_b, w.colour_b)]
+        elif name == "sph_center_lo":  # the port's own: the reference keeps float32 centres
+            assert static.sph_lo == bool(g.any())
+            pairs = []
         elif name in ("psph", "ptris"):
             assert (g is None) == (w is None), name
             fields = TT.REFERENCE_FIELDS if name == "ptris" else ST.REFERENCE_FIELDS
@@ -304,6 +307,7 @@ def test_build_doom_matches_reference(monkeypatch):
     static, scene, _ = got
     assert static.n_tris == 95922 and static.tri_rows == TT.ROWS_PER_CHUNK
     assert bool(scene.mat_albedo_vertex[0])  # albedo {type: Vertex}
+    assert not static.sph_lo  # the ground at y -1000140 is a float32 number
 
 
 def test_build_dragon_matches_reference(monkeypatch):
@@ -316,3 +320,7 @@ def test_build_dragon_matches_reference(monkeypatch):
     static, scene, _ = got
     assert static.n_tris == 200000 and static.tri_rows == TT.ROWS_PER_CHUNK_LARGE
     assert (static.tri_chunks, scene.ptris.tris.shape[0]) == (1755, 35104)
+    # The ground at y -1000002.8: -1000002.8125 in float32, 0.0125 its low part.
+    assert static.sph_lo and float(scene.sph_center[0, 1]) == -1000002.8125
+    assert scene.sph_center_lo[0].tolist() == [0.0, np.float32(0.0125), 0.0]
+    assert not scene.sph_center_lo[1:].any()

@@ -135,6 +135,38 @@ def test_sky():
         _close(got, want)
 
 
+@pytest.mark.parametrize("with_lo", [True, False])
+def test_sphere_intersect_centre_low_part(with_lo):
+    """A centre that float32 does not hold (the ground at y -1000002.8 is
+    -1000002.8125 in float32): with its low part the double-single test
+    puts the hit where the float64 quadratic does, to 2e-6; without it,
+    1.25 cm farther along a ray straight down."""
+    rng = np.random.default_rng(3)
+    c64 = np.array([0.0, -1000002.8, 0.0])
+    hi = c64.astype(np.float32)
+    lo = (c64 - hi).astype(np.float32)
+    o = rng.uniform(-3, 3, (N, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(-2.5, 4, N)
+    d = _unit(rng, N)
+    d[:, 1] = -np.abs(d[:, 1]) - 0.2
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    oc = o.astype(np.float64) - c64
+    b = (d.astype(np.float64) * oc).sum(1)
+    disc = b * b - (oc * oc).sum(1) + 1e12
+    want = -b - np.sqrt(disc)
+    n = torch.from_numpy
+    t, hit = TG.intersect(n(o), n(d), n(np.broadcast_to(hi, (N, 3)).copy()),
+                          n(np.full(N, 1e6, np.float32)),
+                          n(np.broadcast_to(lo, (N, 3)).copy()) if with_lo else None)
+    assert bool(hit.all())
+    err = np.abs(t.numpy() - want)
+    if with_lo:
+        assert err.max() < 2e-6
+    else:
+        straight = np.abs(d[:, 1]) > 0.999
+        assert straight.any() and np.allclose(err[straight], 0.0125, atol=2e-4)
+
+
 @pytest.mark.parametrize("radius", [0.7, 1e6])
 def test_sphere_intersect(radius):
     """The double-single test, including a radius-1e6 ground sphere seen

@@ -22,9 +22,11 @@ from paths_tpu_torch import integrator as I
 from paths_tpu_torch import native
 from paths_tpu_torch import profiling as P
 from paths_tpu_torch import render as R
+from paths_tpu_torch import sky as SK
 from paths_tpu_torch.progressive import ProgressiveRenderer
 from paths_tpu_torch.scene.build import build_scene
 from paths_tpu_torch.scene.stress import generate_lit_stress_scene
+from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
 torch.set_num_threads(2)
 
@@ -36,6 +38,7 @@ SAMPLES = "paths_tpu_torch.render_samples"
 WAVE = "paths_tpu_torch.render_wave"
 BACKWARD = "paths_tpu_torch.grad_backward"
 DISPATCH = "paths_tpu_torch.dispatch"
+ENV_NEE = "paths_tpu_torch.env_nee"
 # Draws a bounce of the lit scene makes: the light's pick, u and v, the
 # lobe, the BSDF's u and v, Russian roulette.
 DRAWS_PER_STEP = 7
@@ -49,6 +52,14 @@ def lit():
     lanes = ((pix % W).to(torch.int32), (pix // W).to(torch.int32), pix,
              torch.zeros_like(pix))
     return dataclasses.replace(static, max_bounces=3), scene, C.resize(cam, W, H), lanes
+
+
+@pytest.fixture(scope="module")
+def env_demo():
+    """scenes/env_demo.yml (three spheres on a ground sphere under the
+    256x128 sunrise HDRI, no light), 3 bounces, at 16x8."""
+    static, scene, cam = build_scene(load_scene_description("scenes/env_demo.yml"), device="cpu")
+    return dataclasses.replace(static, max_bounces=3), scene, C.resize(cam, W, H)
 
 
 def _render(lit, spp=2):
@@ -264,3 +275,64 @@ def test_trace_holds_the_spans(lit, tmp_path):
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {SAMPLES, PATH_STEP, SYNC, RNG} <= names
+
+
+def _lanes_per_step(monkeypatch):
+    """Wraps integrator.path_step: the list of each call's lane count."""
+    lanes = []
+    orig = I.path_step
+    monkeypatch.setattr(I, "path_step",
+                        lambda *a: lanes.append(a[3][0].shape[0]) or orig(*a))
+    return lanes
+
+
+@pytest.mark.parametrize("case", ["hdri_env_nee", "hdri", "gradient_env_nee"])
+def test_env_spans_only_with_env_nee_on_an_hdri_sky(env_demo, monkeypatch, case):
+    """An ``env_nee`` span in every bounce iteration with environment NEE on
+    an HDRI sky, and none otherwise, each inside its ``path_step`` span."""
+    static, scene, cam = env_demo
+    if case == "gradient_env_nee":
+        static = dataclasses.replace(static, sky_type=SK.GRADIENT)
+    static = dataclasses.replace(static, env_nee=case.endswith("env_nee"))
+    lanes = _lanes_per_step(monkeypatch)
+    with P.record() as rec:
+        R.render_image(static, scene, cam, W, H, spp=2, seed=5, tile_pixels=48)
+    steps = _named(rec, PATH_STEP)
+    assert len(steps) == len(lanes) > 3
+    envs = _named(rec, ENV_NEE)
+    assert len(envs) == (len(steps) if case == "hdri_env_nee" else 0)
+    for s in envs:
+        parent = rec.spans[s.parent]
+        assert parent.name == PATH_STEP and s.unit == parent.unit is not None
+        assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+
+
+def test_env_nee_span_once_a_step_under_the_profiler(env_demo, monkeypatch):
+    """Under a profiler too, the env_nee span opens once a path_step call
+    (three tiles of 48 lanes, the last padded), as a range of the trace."""
+    static, scene, cam = env_demo
+    static = dataclasses.replace(static, env_nee=True)
+    lanes = _lanes_per_step(monkeypatch)
+    with P.record() as rec:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            R.render_image(static, scene, cam, W, H, spp=1, seed=9, tile_pixels=48)
+    assert set(lanes) == {48}
+    assert len(_named(rec, ENV_NEE)) == len(lanes)
+    ranges = [e for e in prof.events() if e.name == ENV_NEE]
+    assert len(ranges) == len(lanes)
+
+
+def test_env_spans_off_make_nothing(env_demo, monkeypatch):
+    """With the recorder and the profiler off, the environment light's span
+    opens no range and records nothing."""
+    static, scene, cam = env_demo
+    static = dataclasses.replace(static, env_nee=True)
+
+    def fail(*a, **k):
+        raise AssertionError("a span or range was made")
+
+    monkeypatch.setattr(P, "Span", fail)
+    monkeypatch.setattr(torch.profiler, "record_function", fail)
+    assert P._record is None
+    img = R.render_image(static, scene, cam, W, H, spp=1, seed=9, tile_pixels=48)
+    assert np.isfinite(img).all() and P._record is None
