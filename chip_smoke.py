@@ -1535,16 +1535,18 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     from paths_tpu_torch import integrator as I
 
     def from_closest(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
-        f, _, _, e, t = I.intersect_brief(static, scene, o, d, excl_kind, excl_idx)
+        f, _, _, e, t = yield from I._intersect_brief(static, scene, o, d, excl_kind,
+                                                      excl_idx)
         return f & (t < t_max) & (e != excl_ent)
 
+    # A scene of its own: the step's graphs are captured with the patch on.
     static, scene, cam = build_scene(load_scene_description(DOOM), device=device)
-    any_hit, I.occluded_query = I.occluded_query, from_closest
+    any_hit, I._occluded_query = I._occluded_query, from_closest
     try:
         mixed = render_image(static, scene, C.resize(cam, width, height), width,
                              height, spp=spp[2], seed=0)
     finally:
-        I.occluded_query = any_hit
+        I._occluded_query = any_hit
     image_parts("doom_standin: shadows from K3's closest hit vs K4's any-hit, "
                 "K3 closest hits", mixed, runs[2][1])
     image_parts("doom_standin: K6 vs K3 closest hits, shadows from the closest hit",

@@ -30,7 +30,10 @@
 //
 // Lane keys come as int64 tensors, of which the low 32 bits are the word,
 // as in hashing.as_u32; a null bounce pointer means the scalar bounce for
-// every lane.
+// every lane.  The seed comes by value, or, where seed_word is not null, as
+// the low 32 bits of the int64 word it points to on the card: a launch
+// captured into a CUDA graph then reads each replay's seed
+// (step_graphs.py), where a by-value seed would be the capture's forever.
 //
 // What bounds them on this card: nothing of the card.  A lane reads two or
 // three keys (8 B each) and writes 4 or 16 B against a few dozen integer
@@ -116,7 +119,14 @@ __device__ __forceinline__ void cmj(uint32_t s, uint32_t m, uint32_t n,
   *y = __fdiv_rn(__fadd_rn(__uint2float_rn(s / m), __fdiv_rn(__fadd_rn(sx, jy), fm)), fn);
 }
 
-__global__ void shading_uniform_kernel(uint32_t seed, const long long* pixel,
+// The seed of a launch: the device word where there is one.
+__device__ __forceinline__ uint32_t seed_of(uint32_t seed,
+                                            const long long* seed_word) {
+  return seed_word ? word(seed_word, 0) : seed;
+}
+
+__global__ void shading_uniform_kernel(uint32_t seed, const long long* seed_word,
+                                       const long long* pixel,
                                        const long long* sample,
                                        const long long* bounce,
                                        uint32_t bounce_all, uint32_t dim, int n,
@@ -124,13 +134,14 @@ __global__ void shading_uniform_kernel(uint32_t seed, const long long* pixel,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t b = bounce ? word(bounce, i) : bounce_all;
-  const uint32_t bits = hash4(seed, word(pixel, i), word(sample, i),
-                              b * kDimsPerBounce + dim);
+  const uint32_t bits = hash4(seed_of(seed, seed_word), word(pixel, i),
+                              word(sample, i), b * kDimsPerBounce + dim);
   out[i] = __uint2float_rn(bits >> 8) * (1.0f / 16777216.0f);
 }
 
 // out (4, n) f32: square x, square y, disk pattern x, disk pattern y.
-__global__ void camera_cmj_kernel(uint32_t seed, const long long* pixel,
+__global__ void camera_cmj_kernel(uint32_t seed, const long long* seed_word,
+                                  const long long* pixel,
                                   const long long* sample, uint32_t m,
                                   uint32_t n_pat, uint32_t square_tag,
                                   uint32_t disk_tag, int n, float* out) {
@@ -138,13 +149,14 @@ __global__ void camera_cmj_kernel(uint32_t seed, const long long* pixel,
   if (i >= n) return;
   const uint32_t pid = word(pixel, i);
   const uint32_t sid = word(sample, i);
+  const uint32_t key = seed_of(seed, seed_word);
   const uint32_t mn = m * n_pat;
   const uint32_t s = sid % mn;
   const uint32_t batch = sid / mn;
   const long long stride = n;
-  cmj(s, m, n_pat, hash4(seed, pid, batch, square_tag), out + i,
+  cmj(s, m, n_pat, hash4(key, pid, batch, square_tag), out + i,
       out + stride + i);
-  cmj(s, m, n_pat, hash4(seed, pid, batch, disk_tag), out + 2 * stride + i,
+  cmj(s, m, n_pat, hash4(key, pid, batch, disk_tag), out + 2 * stride + i,
       out + 3 * stride + i);
 }
 
@@ -152,24 +164,26 @@ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-extern "C" int lane_shading_uniform(uint32_t seed, const long long* pixel,
+extern "C" int lane_shading_uniform(uint32_t seed, const long long* seed_word,
+                                    const long long* pixel,
                                     const long long* sample,
                                     const long long* bounce,
                                     uint32_t bounce_all, uint32_t dim, int n,
                                     float* out, void* stream) {
   shading_uniform_kernel<<<blocks_for(n), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      seed, pixel, sample, bounce, bounce_all, dim, n, out);
+      seed, seed_word, pixel, sample, bounce, bounce_all, dim, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lane_camera_cmj(uint32_t seed, const long long* pixel,
+extern "C" int lane_camera_cmj(uint32_t seed, const long long* seed_word,
+                               const long long* pixel,
                                const long long* sample, uint32_t m,
                                uint32_t n_pat, uint32_t square_tag,
                                uint32_t disk_tag, int n, float* out,
                                void* stream) {
   camera_cmj_kernel<<<blocks_for(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      seed, pixel, sample, m, n_pat, square_tag, disk_tag, n, out);
+      seed, seed_word, pixel, sample, m, n_pat, square_tag, disk_tag, n, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,12 @@ sky for direct light (``sky.sample_env``) and sends a second shadow query,
 unbounded and excluding no entity, through ``occluded_query``; the block is
 the span ``paths_tpu_torch.env_nee`` (``profiling.py``).
 
+The step is written as a generator of stretches (``step_graphs.py``): each
+traversal query is a ``yield`` of its wrapper's call, so the eager code
+between two queries is one stretch, which replays as a CUDA graph on the
+card (``path_step``) and runs as plain code elsewhere.  ``intersect_brief``,
+``occluded_query`` and ``intersect_full`` drive their generators eagerly.
+
 Closest-hit and shadow queries over the small spheres and the triangles go
 to the traversal kernels (``ops/sphere_traverse.py``,
 ``ops/tri_traverse.py``; the small spheres to the flat kernel of
@@ -30,12 +36,15 @@ triangles) take an unrolled scan of ``geom/triangle.py``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from paths_tpu_torch import lights as LT
 from paths_tpu_torch import materials as M
 from paths_tpu_torch import profiling as P
 from paths_tpu_torch import sky as SK
+from paths_tpu_torch import step_graphs as SG
 from paths_tpu_torch.geom import sphere as GS
 from paths_tpu_torch.geom import triangle as GT
 from paths_tpu_torch.math import vec
@@ -90,7 +99,7 @@ def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
                      excl_kind, excl_idx):
     """Closest sphere hit: (t, idx, ent), t = BIG on a miss.  Big/far
     spheres seed the kernel's t_init, as in the reference's
-    _scan_spheres_pallas."""
+    _scan_spheres_pallas.  A generator of stretches (``step_graphs.py``)."""
     n = o.shape[0]
     t_best = torch.full((n,), BIG, device=o.device)
     i_best = torch.zeros(n, dtype=torch.int32, device=o.device)
@@ -103,10 +112,11 @@ def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
     e_best = scene.sph_ent[i_best]
     excl_i = torch.where(excl_kind == KIND_SPHERE, excl_idx, -1).to(torch.int32)
     if static.sph_flat:
-        tk, ik, ek = CS.flat_closest_hit(scene.psph.tris, o.contiguous(),
-                                         d.contiguous(), excl_i, t_best.contiguous())
+        tk, ik, ek = yield SG.Call(CS, "flat_closest_hit", scene.psph.tris, o.contiguous(),
+                                   d.contiguous(), excl_i, t_best.contiguous())
     else:
-        tk, ik, ek = ST.closest_hit_spheres(
+        tk, ik, ek = yield SG.Call(
+            ST, "closest_hit_spheres",
             scene.psph, static.sph_chunks, o.contiguous(), d.contiguous(),
             excl_i, t_best.contiguous(),
         )
@@ -137,19 +147,24 @@ def _closest_bvh(scene: SceneArrays, o, d, excl_kind, excl_idx, t_init):
         raise ValueError("the BVH route needs the packed BVH table "
                          "(scene.pbvh), which build_scene makes")
     excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)
-    return PK.closest_hit_packet(scene.pbvh, o.contiguous(), d.contiguous(),
-                                 excl_i, t_init.contiguous())
+    return (yield SG.Call(PK, "closest_hit_packet", scene.pbvh, o.contiguous(),
+                          d.contiguous(), excl_i, t_init.contiguous()))
 
 
 def intersect_brief(static, scene, o, d, excl_kind, excl_idx):
     """Closest hit, identity only: (found, kind, idx, ent, t)."""
+    return SG.eager(_intersect_brief(static, scene, o, d, excl_kind, excl_idx))
+
+
+def _intersect_brief(static, scene, o, d, excl_kind, excl_idx):
+    """``intersect_brief`` as a generator of stretches."""
     n = o.shape[0]
     t = torch.full((n,), BIG, device=o.device)
     kind = torch.zeros(n, dtype=torch.int32, device=o.device)
     idx = torch.zeros(n, dtype=torch.int32, device=o.device)
     ent = torch.zeros(n, dtype=torch.int32, device=o.device)
     if static.has_spheres:
-        ts, is_, es = _closest_spheres(static, scene, o, d, excl_kind, excl_idx)
+        ts, is_, es = yield from _closest_spheres(static, scene, o, d, excl_kind, excl_idx)
         better = ts < t
         t = torch.where(better, ts, t)
         kind = torch.where(better, KIND_SPHERE, kind).to(torch.int32)
@@ -159,12 +174,13 @@ def intersect_brief(static, scene, o, d, excl_kind, excl_idx):
         if static.tri_chunks > 0:
             # The sphere hit seeds t_init, as in the reference.
             excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)
-            tt, it, et = TT.closest_hit_tris(
+            tt, it, et = yield SG.Call(
+                TT, "closest_hit_tris",
                 scene.ptris, static.tri_chunks, o.contiguous(), d.contiguous(),
                 excl_i, t.contiguous(),
             )
         elif static.use_bvh:
-            tt, it, et = _closest_bvh(scene, o, d, excl_kind, excl_idx, t)
+            tt, it, et = yield from _closest_bvh(scene, o, d, excl_kind, excl_idx, t)
         else:
             tt, it = _scan_tris(static, scene, o, d, excl_kind, excl_idx)
             et = scene.tri_ent[it]
@@ -196,9 +212,16 @@ def occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
     triangle table (the BVH route, or the scan), the port follows the
     reference: occlusion from the closest hit, through K6 on the BVH route
     (the reference has no BVH any-hit)."""
+    return SG.eager(_occluded_query(static, scene, o, d, excl_kind, excl_idx,
+                                    t_max, excl_ent))
+
+
+def _occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
+    """``occluded_query`` as a generator of stretches."""
     kernels = static.tri_chunks > 0 if static.has_tris else static.sph_chunks > 0
     if not kernels:
-        f, _, _, e, t = intersect_brief(static, scene, o, d, excl_kind, excl_idx)
+        f, _, _, e, t = yield from _intersect_brief(static, scene, o, d, excl_kind,
+                                                    excl_idx)
         return f & (t < t_max) & (e != excl_ent)
 
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
@@ -214,22 +237,25 @@ def occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
             excl_i = torch.where(excl_s, excl_idx, -1).to(torch.int32)
             o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o).contiguous()
             if static.sph_flat:
-                occ = occ | CS.flat_occludes(
+                occ = occ | (yield SG.Call(
+                    CS, "flat_occludes",
                     scene.psph.tris, o_eff, d.contiguous(), excl_i,
-                    excl_ent.contiguous(), t_max.contiguous())
+                    excl_ent.contiguous(), t_max.contiguous()))
             else:
-                occ = occ | ST.occludes_spheres(
+                occ = occ | (yield SG.Call(
+                    ST, "occludes_spheres",
                     scene.psph, static.sph_chunks, o_eff, d.contiguous(),
                     excl_i, excl_ent.contiguous(), t_max.contiguous(),
-                )
+                ))
     if static.has_tris:
         # Lanes already occluded are pushed out (dead: not tested again).
         excl_i = torch.where(excl_kind == KIND_TRI, excl_idx, -1).to(torch.int32)
         o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o)
-        occ = occ | TT.occludes_tris(
+        occ = occ | (yield SG.Call(
+            TT, "occludes_tris",
             scene.ptris, static.tri_chunks, o_eff.contiguous(), d.contiguous(),
             excl_i, excl_ent.contiguous(), t_max.contiguous(),
-        )
+        ))
     return occ
 
 
@@ -241,7 +267,13 @@ def intersect_full(static, scene, o, d, excl_kind, excl_idx):
     the barycentric blend of its (unnormalised) vertex normals
     (scene.rs:178-190, model.rs:142-156).  vtx_colour is the barycentric
     blend of the vertex colours (ones off triangles)."""
-    found, kind, idx, ent, t = intersect_brief(static, scene, o, d, excl_kind, excl_idx)
+    return SG.eager(_intersect_full(static, scene, o, d, excl_kind, excl_idx))
+
+
+def _intersect_full(static, scene, o, d, excl_kind, excl_idx):
+    """``intersect_full`` as a generator of stretches."""
+    found, kind, idx, ent, t = yield from _intersect_brief(static, scene, o, d,
+                                                           excl_kind, excl_idx)
     location = o + d * torch.where(found, t, 0.0)[..., None]
     normal = torch.zeros_like(o)
     normal[..., 1] = 1.0
@@ -362,15 +394,40 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
 
     bounce: per-lane (N,) int64 or a Python int (RNG counter + RR gate).
     state: (o, d, throughput, colour, alive, last_spec, excl_kind, excl_idx).
-    u(bounce, dim): per-lane uniform for this bounce and dimension slot.
+    u(bounce, dim): per-lane uniform for this bounce and dimension slot; a
+    ``LaneUniforms`` (``lane_uniforms``) or any callable.
+
+    The step's eager stretches, between its traversal-kernel calls, replay
+    as CUDA graphs (``step_graphs.run``) where bounce, state and a
+    ``LaneUniforms``' seed and keys are all CUDA tensors and nothing
+    requires grad: the regenerating wavefront's iterations
+    (``render.render_samples``).  The returned state is then the graphs'
+    buffers, which the next such call overwrites.  Elsewhere (the CPU, the
+    gradient, an integer bounce, another u) the stretches run eagerly.
     """
+    if isinstance(u, LaneUniforms):
+        return SG.run(_lane_step, (static, scene), (bounce, *state, *u))
+    return SG.eager(_path_step(static, scene, bounce, state, u))
+
+
+def _lane_step(static, scene, bounce, *lanes):
+    """``_path_step`` on flat inputs: the state's eight tensors, then the
+    ``LaneUniforms``' three."""
+    return (yield from _path_step(static, scene, bounce, lanes[:8],
+                                  LaneUniforms(*lanes[8:])))
+
+
+def _path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
+    """``path_step`` as a generator of stretches: each traversal query ends
+    one; the environment light's stretches and query are the span
+    ``paths_tpu_torch.env_nee``."""
     env_nee = static.env_nee and static.sky_type == SK.HDRI
     (o, d, throughput, colour, alive, last_spec, excl_kind, excl_idx) = state
 
     # Dead lanes keep stale rays; their origins are pushed far outside the
     # scene so the traversal skips them.  Results are masked by `alive`.
     o_eff = torch.where(alive[..., None], o, DEAD_ORIGIN)
-    hit = intersect_full(static, scene, o_eff, d, excl_kind, excl_idx)
+    hit = yield from _intersect_full(static, scene, o_eff, d, excl_kind, excl_idx)
 
     # Miss -> skybox, evaluated at -direction (trace.rs:18-23).  With
     # environment NEE on, diffuse-bounce misses are already covered by the
@@ -428,8 +485,8 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
                               torch.where(l_hit, t_light, BIG))
         excl_ent_q = torch.where(is_point, -1, light["ent_id"]).to(torch.int32)
         shadow_o_eff = torch.where(want[..., None], shadow_o, DEAD_ORIGIN)
-        occluded = occluded_query(static, scene, shadow_o_eff, shadow_dir,
-                                  hit["kind"], hit["idx"], t_max_q, excl_ent_q)
+        occluded = yield from _occluded_query(static, scene, shadow_o_eff, shadow_dir,
+                                              hit["kind"], hit["idx"], t_max_q, excl_ent_q)
         ok = want & ~occluded
         colour = colour + torch.where(ok[..., None], direct * throughput, 0.0)
 
@@ -437,26 +494,27 @@ def path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
     # reference package's extension; upstream only collects the sky on a
     # miss) ----
     if env_nee:
-        with P.span("paths_tpu_torch.env_nee"):
-            e_dir, e_inv_pdf, e_rad = SK.sample_env(
-                scene.sky, u(bounce, H.DIM_ENV_CDF), u(bounce, H.DIM_ENV_JX),
-                u(bounce, H.DIM_ENV_JY))
-            e_shadow_dir = -e_dir  # surface -> sky
-            e_shadow_o = location + normal * SHADOW_EPS
-            e_cos = vec.dot(normal, e_shadow_dir)
-            e_brdf = M.eval_brdf(mat, vec_out, e_dir, normal)
-            e_direct = e_rad * e_brdf * e_inv_pdf[..., None]
-            # Any hit at all blocks the sky: t_max BIG and no entity excluded,
-            # as (N,) lanes, as the wrappers take them.
-            e_want = alive & (e_cos > 0.0) & (vec.max_component(e_direct) > 0.0)
-            e_o_eff = torch.where(e_want[..., None], e_shadow_o, DEAD_ORIGIN)
-            n = o.shape[0]
-            e_occ = occluded_query(
-                static, scene, e_o_eff, e_shadow_dir, hit["kind"], hit["idx"],
-                torch.full((n,), BIG, device=o.device),
-                torch.full((n,), -1, dtype=torch.int32, device=o.device))
-            e_ok = e_want & ~e_occ
-            colour = colour + torch.where(e_ok[..., None], e_direct * throughput, 0.0)
+        yield SG.Enter("paths_tpu_torch.env_nee")
+        e_dir, e_inv_pdf, e_rad = SK.sample_env(
+            scene.sky, u(bounce, H.DIM_ENV_CDF), u(bounce, H.DIM_ENV_JX),
+            u(bounce, H.DIM_ENV_JY))
+        e_shadow_dir = -e_dir  # surface -> sky
+        e_shadow_o = location + normal * SHADOW_EPS
+        e_cos = vec.dot(normal, e_shadow_dir)
+        e_brdf = M.eval_brdf(mat, vec_out, e_dir, normal)
+        e_direct = e_rad * e_brdf * e_inv_pdf[..., None]
+        # Any hit at all blocks the sky: t_max BIG and no entity excluded,
+        # as (N,) lanes, as the wrappers take them.
+        e_want = alive & (e_cos > 0.0) & (vec.max_component(e_direct) > 0.0)
+        e_o_eff = torch.where(e_want[..., None], e_shadow_o, DEAD_ORIGIN)
+        n = o.shape[0]
+        e_occ = yield from _occluded_query(
+            static, scene, e_o_eff, e_shadow_dir, hit["kind"], hit["idx"],
+            torch.full((n,), BIG, device=o.device),
+            torch.full((n,), -1, dtype=torch.int32, device=o.device))
+        e_ok = e_want & ~e_occ
+        colour = colour + torch.where(e_ok[..., None], e_direct * throughput, 0.0)
+        yield SG.EXIT
 
     # ---- BSDF sample & bounce (trace.rs:84-101) ----
     new_dir, pdf, brdf, is_spec = M.sample(
@@ -513,14 +571,22 @@ def fresh_path_state(o, d):
     )
 
 
-def lane_uniforms(seed, pixel_id, sample_id):
-    """u(bounce, dim) for lanes with identity (pixel_id, sample_id): one
-    launch of ``ops/lane_rng.py``'s kernel a draw on the card."""
-    def u(bounce, dim):
-        with P.span("paths_tpu_torch.rng"):
-            return RNG.shading_uniform(seed, pixel_id, sample_id, bounce, dim)
+class LaneUniforms(NamedTuple):
+    """u(bounce, dim) for lanes with identity (pixel_id, sample_id) under
+    seed (an integer, or a one-element int64 tensor on the lanes' device):
+    one launch of ``ops/lane_rng.py``'s kernel a draw on the card."""
+    seed: object
+    pixel_id: torch.Tensor
+    sample_id: torch.Tensor
 
-    return u
+    def __call__(self, bounce, dim):
+        with P.span("paths_tpu_torch.rng"):
+            return RNG.shading_uniform(self.seed, self.pixel_id, self.sample_id,
+                                       bounce, dim)
+
+
+def lane_uniforms(seed, pixel_id, sample_id) -> LaneUniforms:
+    return LaneUniforms(seed, pixel_id, sample_id)
 
 
 def trace_rays(static: SceneStatic, scene: SceneArrays, ray_o, ray_d,

@@ -12,6 +12,9 @@ trace (port of ``paths_tpu/profiling.py``).
     spans inside carry its id.  A unit inside another belongs to the outer;
   - ``record()``: records the spans, and the counts ``count`` adds, of its
     scope, in memory;
+  - ``launched(counts, key)``: a kernel wrapper's launch count, logged
+    inside ``launch_log()`` so that a CUDA graph's replays count what its
+    capture launched;
   - ``NATIVE_LOAD_S`` and ``NATIVE_BUILDS``: always-on totals, by library,
     of ``native.load_library``'s seconds and compiles;
   - ``trace(logdir)``: the CLI's ``--profile``, a Chrome trace on disk.
@@ -41,6 +44,7 @@ NATIVE_BUILDS: dict = {}
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _record = None  # the Record being filled, or None
+_launch_log = None  # the open launch_log()'s list, or None
 
 
 @dataclass(slots=True)
@@ -84,6 +88,28 @@ def count(key: str, n: int = 1) -> None:
     """Adds n to the record's count `key`; nothing when no record is on."""
     if _record is not None:
         _record.counts[key] = _record.counts.get(key, 0) + n
+
+
+def launched(counts: dict, key: str) -> None:
+    """Counts one kernel launch in a wrapper's ``counts[key]`` (its module's
+    ``LAUNCHES``).  Inside ``launch_log()`` the launch is also logged, so
+    that whoever captured it into a CUDA graph counts it again at each
+    replay (``step_graphs.py``): the counts stay kernels run."""
+    counts[key] += 1
+    if _launch_log is not None:
+        _launch_log.append((counts, key))
+
+
+@contextlib.contextmanager
+def launch_log():
+    """Logs the launches that ``launched`` counts in the scope, as
+    ``(counts, key)`` pairs; yields the list."""
+    global _launch_log
+    outer, _launch_log = _launch_log, []
+    try:
+        yield _launch_log
+    finally:
+        _launch_log = outer
 
 
 class span:

@@ -10,6 +10,7 @@ sort, lane permutation, block culls) has no counterpart here.
 
 from __future__ import annotations
 
+import operator
 import struct
 import zlib
 
@@ -20,6 +21,7 @@ from paths_tpu_torch import camera as C
 from paths_tpu_torch import debug
 from paths_tpu_torch import integrator as I
 from paths_tpu_torch import profiling as P
+from paths_tpu_torch import step_graphs as SG
 from paths_tpu_torch.math.colour import to_bytes_np
 from paths_tpu_torch.ops import lane_rng as RNG
 from paths_tpu_torch.sampling import cmj
@@ -68,49 +70,87 @@ def render_samples(static, scene, cam, px, py, pixel_id, sample_start,
     next sample's camera ray, so every iteration does useful work on nearly
     every lane.  RNG identity is (pixel_id, sample_id, bounce, dim) as in
     render_wave, so the result equals the sum of the n_samples waves up to
-    float addition order.  Returns (N, 3)."""
+    float addition order.  Returns (N, 3).
+
+    The wave's start and each iteration's bank and regeneration are
+    stretches of ``step_graphs.py``, as ``integrator.path_step``'s are: on
+    the card they replay as CUDA graphs, which take the seed, the sample
+    start and count, the lanes and the camera as device tensors each call
+    and keep the wavefront's carry in place between iterations."""
     dev = px.device
-    n = px.shape[0]
-    max_b = static.max_bounces + 1  # trace.rs:14: 11 segment iterations
-    pixel_id = H.as_u32(pixel_id)
-    s_start = int(sample_start)
 
-    def regen(slot):
-        sid = (slot + s_start) & H.MASK32
-        o, d, w = gen_camera_rays(cam, px, py, pixel_id, sid, seed)
-        return I.fresh_path_state(o, d), w
+    def word(v):
+        return torch.full((), operator.index(v) & H.MASK32, dtype=torch.int64,
+                          device=dev)
 
-    slot = torch.zeros(n, dtype=torch.int64, device=dev)
-    bounce = torch.zeros(n, dtype=torch.int64, device=dev)
-    acc = torch.zeros((n, 3), device=dev)
-    done = torch.zeros(n, dtype=torch.bool, device=dev)
-    state, w = regen(slot)
-
-    while not _all_done(done):
-        u = I.lane_uniforms(seed, pixel_id, (slot + s_start) & H.MASK32)
-        state = I.path_step(static, scene, bounce, state, u)
-        bounce = bounce + 1
-        finished = ~done & (~state[4] | (bounce >= max_b))
-
-        # Bank the finished sample (worker.rs:77: sample = trace * weight).
-        acc = acc + torch.where(finished[..., None], state[3] * w[..., None], 0.0)
-
-        # Advance to the next sample slot; regenerate or retire the lane.
-        slot = torch.where(finished, slot + 1, slot)
-        done = done | (finished & (slot >= n_samples))
-        start_new = finished & ~done
-        fresh, w_new = regen(slot)
-        bounce = torch.where(start_new, 0, bounce)
-        w = torch.where(start_new, w_new, w)
-        state = tuple(
-            torch.where(start_new[..., None] if new.dim() == 2 else start_new,
-                        new, old)
-            for new, old in zip(fresh, state)
-        )
-        # Retired lanes must not keep tracing.
-        state = state[:4] + (state[4] & ~done,) + state[5:]
+    wave = SG.run(_wave_start, (static,),
+                  (word(seed), word(sample_start), word(n_samples), px, py, pixel_id,
+                   *cam))
+    lanes, carry = wave[:_LANES], wave[_LANES:]
+    while not _all_done(carry[_DONE]):
+        state = I.path_step(static, scene, carry[_BOUNCE], carry[:8],
+                            I.lane_uniforms(lanes[0], lanes[5], carry[_SID]))
+        carry = SG.run(_wave_bank, (static,), (*lanes, *state, *carry[8:]), into=carry)
+    acc = carry[_ACC].clone()
     debug.check_outputs("render_samples", acc)
     return acc
+
+
+# A wave's lanes: seed, sample start, sample count, px, py, pixel id and the
+# camera's nine fields; its carry: the path state's eight tensors, then the
+# lane's sample slot, sample id, bounce, accumulated radiance, whether it
+# retired, and its camera weight.
+_LANES = 6 + len(C.Camera._fields)
+_SID, _BOUNCE, _ACC, _DONE = 9, 10, 11, 12
+
+
+def _regen(lanes, slot):
+    """Fresh camera rays for the lanes' sample slots: (path state, weight,
+    sample id)."""
+    seed, s_start, _, px, py, pixel_id, *cam = lanes
+    sid = (slot + s_start) & H.MASK32
+    o, d, w = gen_camera_rays(C.Camera(*cam), px, py, pixel_id, sid, seed)
+    return I.fresh_path_state(o, d), w, sid
+
+
+@SG.single
+def _wave_start(static, seed, s_start, n_samples, px, py, pixel_id, *cam):
+    """The wave's lanes and first carry: every lane at slot 0, bounce 0."""
+    lanes = (seed, s_start, n_samples, px, py, H.as_u32(pixel_id), *cam)
+    n = px.shape[0]
+    slot = torch.zeros(n, dtype=torch.int64, device=px.device)
+    bounce = torch.zeros(n, dtype=torch.int64, device=px.device)
+    acc = torch.zeros((n, 3), device=px.device)
+    done = torch.zeros(n, dtype=torch.bool, device=px.device)
+    state, w, sid = _regen(lanes, slot)
+    return (*lanes, *state, slot, sid, bounce, acc, done, w)
+
+
+@SG.single
+def _wave_bank(static, *args):
+    """One iteration's end: bank each finished sample (worker.rs:77: sample
+    = trace * weight), advance its lane to the next sample slot, and
+    regenerate or retire the lane.  Takes the lanes, the new path state and
+    the carry after the state; returns the next carry."""
+    lanes, state, (slot, _, bounce, acc, done, w) = (
+        args[:_LANES], args[_LANES:_LANES + 8], args[_LANES + 8:])
+    max_b = static.max_bounces + 1  # trace.rs:14: 11 segment iterations
+    bounce = bounce + 1
+    finished = ~done & (~state[4] | (bounce >= max_b))
+    acc = acc + torch.where(finished[..., None], state[3] * w[..., None], 0.0)
+    slot = torch.where(finished, slot + 1, slot)
+    done = done | (finished & (slot >= lanes[2]))
+    start_new = finished & ~done
+    fresh, w_new, sid = _regen(lanes, slot)
+    bounce = torch.where(start_new, 0, bounce)
+    w = torch.where(start_new, w_new, w)
+    state = tuple(
+        torch.where(start_new[..., None] if new.dim() == 2 else start_new, new, old)
+        for new, old in zip(fresh, state)
+    )
+    # Retired lanes must not keep tracing.
+    state = state[:4] + (state[4] & ~done,) + state[5:]
+    return (*state, slot, sid, bounce, acc, done, w)
 
 
 def _all_done(done) -> bool:

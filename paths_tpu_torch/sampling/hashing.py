@@ -34,9 +34,12 @@ DIMS_PER_BOUNCE = 10
 
 def as_u32(x, device=None) -> torch.Tensor:
     """A u32 word (int, numpy array or tensor) as an int64 tensor in
-    [0, 2^32)."""
+    [0, 2^32).  An int is filled in on the device, not copied from the host,
+    so the eager hash can be captured into a CUDA graph."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & MASK32
+    if isinstance(x, int):
+        return torch.full((), x & MASK32, dtype=torch.int64, device=device)
     return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK32
 
 

@@ -716,7 +716,9 @@ def test_lane_rng_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
     (pix, sid), (pix_c, _) = _rng_keys(dev)
     with pytest.raises(TypeError):
-        RNG.shading_uniform(torch.tensor(3, device=dev), pix, sid, 0, 0)
+        RNG.shading_uniform(torch.tensor(3, dtype=torch.int32, device=dev), pix, sid, 0, 0)
+    with pytest.raises(ValueError):
+        RNG.shading_uniform(torch.tensor(3), pix, sid, 0, 0)
     with pytest.raises(TypeError):
         RNG.shading_uniform(3, pix, sid.to(torch.float32), 0, 0)
     with pytest.raises(TypeError):
@@ -738,6 +740,7 @@ def test_render_samples_with_the_lane_rng_kernel_equals_the_eager_hash(dev, monk
     card."""
     from paths_tpu_torch import camera as C
     from paths_tpu_torch import render as R
+    from paths_tpu_torch import step_graphs as SG
     from paths_tpu_torch.ops import lane_rng as RNG
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_stress_scene
@@ -748,6 +751,7 @@ def test_render_samples_with_the_lane_rng_kernel_equals_the_eager_hash(dev, monk
     px, py = (pix % 180).to(torch.int32), (pix // 180).to(torch.int32)
 
     def render():
+        SG.clear()  # the step's graphs are captured with the RNG of the moment
         return R.render_samples(static, scene, cam, px, py, pix, 14, 4, 7300000001)
 
     RNG.reset_launch_counts()
