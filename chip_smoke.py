@@ -197,6 +197,10 @@ import typing
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+# The kernel launch counts, profiling.LAUNCHES, whose keys native declares.
+from paths_tpu_torch import native  # noqa: E402,F401
+from paths_tpu_torch import profiling as P  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # FP32 operations per (ray, slot) test, counted from the row tests, an FMA
 # as one: a sphere slot ~25; a plane-form triangle slot 32 (six three-term
@@ -307,25 +311,6 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def _kernel_modules():
-    from paths_tpu_torch.ops import chunk_scan as CS
-    from paths_tpu_torch.ops import lane_rng as RNG
-    from paths_tpu_torch.ops import packet_traverse as PK
-    from paths_tpu_torch.ops import sphere_traverse as ST
-    from paths_tpu_torch.ops import tri_traverse as TT
-
-    return ST, TT, CS, PK, RNG
-
-
-def reset_launch_counts():
-    for m in _kernel_modules():
-        m.reset_launch_counts()
-
-
-def launch_counts() -> dict:
-    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
 def hdri_lit_scene(device):
@@ -689,7 +674,7 @@ def lane_rng_phase(device, width=720, height=480, seed=7300000001):
 
     from paths_tpu_torch import render as R
 
-    RNG = _kernel_modules()[4]
+    from paths_tpu_torch.ops import lane_rng as RNG
     rng = np.random.default_rng(seed)
     cam = (R.PAT_M, R.PAT_N, R._SQUARE_TAG, R._DISK_TAG)
     recs = {k: {"bound_by": "bytes", "max_abs_err": 0.0} for k in RNG_KERNELS}
@@ -742,7 +727,9 @@ def _families():
     wrapper, plain)).  Every wrapper and plain version takes (table,
     n_chunks, o, d, excl, t_init) or (table, n_chunks, o, d, excl, excl_ent,
     t_max); the flat kernels read table.tris only."""
-    ST, TT, CS, _, _ = _kernel_modules()
+    from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import sphere_traverse as ST
+    from paths_tpu_torch.ops import tri_traverse as TT
     rows_only = lambda fn: lambda tab, nc, *a: fn(tab.tris, *a)
     sph_ch = rows_only(ST.closest_hit_spheres_plain)
     sph_ah = rows_only(ST.occludes_spheres_plain)
@@ -847,7 +834,7 @@ def measure_packet(label, pbvh, args, timer, bound, plain_every=1):
     lane.  Returns {name: record}."""
     import torch
 
-    PK = _kernel_modules()[3]
+    from paths_tpu_torch.ops import packet_traverse as PK
     peak_ops, peak_txt = fp32_peak(args[0].device)
     got = PK.closest_hit_packet(pbvh, *args)
     held = every(args, plain_every)
@@ -881,7 +868,8 @@ def sphere_kernel_phases(device, width=720, height=480, timer=time_ms):
     per-kernel records."""
     import torch
 
-    ST, _, CS, _, _ = _kernel_modules()
+    from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import sphere_traverse as ST
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_stress_scene
 
@@ -953,7 +941,7 @@ def adversarial_sphere_lanes(ps, nc, n, n_entities, device, seed=7):
     d, excl, excl_ent, t_max), counts)."""
     import torch
 
-    ST = _kernel_modules()[0]
+    from paths_tpu_torch.ops import sphere_traverse as ST
     g = torch.Generator(device="cpu").manual_seed(seed)
     u = lambda *s: torch.rand(*s, generator=g).to(device)
     slots = ps.tris.reshape(-1, 8)
@@ -1013,7 +1001,8 @@ def hold_adversarial_spheres(ps, nc, ps16, nc16, n_entities, device, n=4096):
     form on the same lanes over ps16 (the same spheres at 16 rows a chunk):
     equal outputs, bit for bit.  Returns the largest absolute difference
     (0)."""
-    ST, _, CS, _, _ = _kernel_modules()
+    from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import sphere_traverse as ST
     ch_args, ah_args, counts = adversarial_sphere_lanes(ps, nc, n, n_entities, device)
     want_ch = ST.closest_hit_spheres_plain(ps.tris, *ch_args)
     want_ah = ST.occludes_spheres_plain(ps.tris, *ah_args)
@@ -1138,7 +1127,7 @@ def hold_adversarial_packet(label, pbvh, scene, device, n=4096):
     bit for bit.  Returns the largest absolute difference (0)."""
     import torch
 
-    PK = _kernel_modules()[3]
+    from paths_tpu_torch.ops import packet_traverse as PK
     o, d, excl, _, counts = adversarial_rays(scene, pbvh.tree, n, device, seed=11)
     lane = torch.arange(n, device=device)
     big = torch.full((n,), BIG, device=device)
@@ -1299,7 +1288,8 @@ def tri_kernel_phases(device, scene_path, label, width=720, height=480,
             recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
 
     # 3e/4e: K6 on the BVH route's table, K3 on the same rays beside it.
-    _, TT, _, PK, _ = _kernel_modules()
+    from paths_tpu_torch.ops import packet_traverse as PK
+    from paths_tpu_torch.ops import tri_traverse as TT
     k6 = lambda *a: PK.closest_hit_packet(bscene.pbvh, *a)
     k3 = lambda *a: TT.closest_hit_tris(scene.ptris, static.tri_chunks, *a)
     psel = torch.arange(SUBSET, device=device) * (n // SUBSET)
@@ -1366,9 +1356,9 @@ def drive(name, run, kernels, absent=()):
     """Drive one path with the launch counts set to 0 just before it and read
     just after; each of `kernels` and of RNG_KERNELS must have launched,
     and none of `absent`.  Returns (counts, what run returned)."""
-    reset_launch_counts()
+    P.reset_launches()
     out = run()
-    counts = launch_counts()
+    counts = dict(P.LAUNCHES)
     log(f"[main] {name}: kernel launches {counts}")
     for k in [*kernels, *RNG_KERNELS]:
         if counts[k] <= 0:
@@ -1648,7 +1638,10 @@ def where_time_goes(device, kind, label, make_scene, width=720, height=480,
     from paths_tpu_torch import integrator as I
     from paths_tpu_torch.render import render_samples, tiled_pixel_order
 
-    ST, TT, CS, PK, _ = _kernel_modules()
+    from paths_tpu_torch.ops import chunk_scan as CS
+    from paths_tpu_torch.ops import packet_traverse as PK
+    from paths_tpu_torch.ops import sphere_traverse as ST
+    from paths_tpu_torch.ops import tri_traverse as TT
     # (module, wrappers, kernel source in the profiler's names, call index of
     # the second bounce iteration's query, per wrapper): K6 takes the
     # closest-hit and the shadow query of every iteration; "hdri" (the lit
@@ -1773,7 +1766,7 @@ def gpu_vs_cpu(device, route="walk"):
     from paths_tpu_torch.scene.stress import generate_mixed_scene
     from paths_tpu_torch.scene.yaml_loader import load_scene_description
 
-    PK = _kernel_modules()[3]
+    from paths_tpu_torch.ops import packet_traverse as PK
     imgs, held, built = [], [0], []
     k6 = PK.closest_hit_packet
 
@@ -1809,7 +1802,7 @@ def gpu_vs_cpu(device, route="walk"):
                 assert static.sph_flat == (route == "flat")
             static = dataclasses.replace(static, max_bounces=3)
             built.append((static, scene, C.resize(cam, 48, 32)))
-            reset_launch_counts()
+            P.reset_launches()
             if route == "bvh" and dev == device:
                 PK.closest_hit_packet = k6_held
             try:
@@ -1817,7 +1810,7 @@ def gpu_vs_cpu(device, route="walk"):
                                          spp=2, seed=0))
             finally:
                 PK.closest_hit_packet = k6
-            if dev == device and route == "bvh" and launch_counts()["packet_closest_hit"] == 0:
+            if dev == device and route == "bvh" and P.LAUNCHES["packet_closest_hit"] == 0:
                 raise AssertionError("GPU vs CPU (bvh route): K6 was not launched")
     rel = rel_mse(*imgs)
     if not rel < 1e-4:
@@ -1837,10 +1830,10 @@ def gpu_vs_cpu(device, route="walk"):
     for dev, (static, scene, cam) in zip((device, "cpu"), built):
         lanes = wave_lanes(48, 32, dev)
         target = torch.zeros((48 * 32, 3), device=dev)
-        reset_launch_counts()
+        P.reset_launches()
         grads.append(G.loss_and_grad(static, scene, cam, *lanes, 0, target))
         if dev == device:
-            counts = launch_counts()
+            counts = dict(P.LAUNCHES)
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
     worst, nonzero = grads_agree(f"{scene_name}, {route} route", g_gpu, g_cpu)
     log(f"[gpu-vs-cpu] {scene_name} 48x32 1 spp, {route} route: loss_and_grad on the "
@@ -2015,10 +2008,10 @@ def gradient_step(device, width=720, height=480, steps=GRAD_STEPS, probe=GRAD_PR
     else:
         tile = n
 
-    reset_launch_counts()
+    P.reset_launches()
     loss0, g0, t_fwd, t_bwd = grad_tiles(static, scene, cam, lanes, target, tile, e,
                                          timed=True)
-    counts = launch_counts()
+    counts = dict(P.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
     log(f"[grad] loss_and_grad, lit stress-500, {n} lanes in {-(-n // tile)} tile(s): "
         f"forward {t_fwd:.2f} s, backward {t_bwd:.2f} s ({t_bwd / t_fwd:.2f}x the "
@@ -2086,12 +2079,12 @@ def vertex_colour_fd(device, width=720, height=480, lanes_n=SUBSET):
         raise AssertionError("doom_standin did not take the kernel route")
     cam = C.resize(cam, width, height)
     lanes = wave_lanes(width, height, device, lanes_n)
-    reset_launch_counts()
+    P.reset_launches()
     t = time.perf_counter()
     g = G.pixel_gradient(static, scene, cam, *lanes, 0, "tri_vc0")
     _sync(device)
     dt = time.perf_counter() - t
-    counts = launch_counts()
+    counts = dict(P.LAUNCHES)
     for k in ("tri_closest_hit", "tri_any_hit"):
         if counts[k] <= 0:
             raise AssertionError(f"{k} was not launched in doom's gradient")
@@ -2257,11 +2250,11 @@ def dp_rank(mesh, out_dir, width, height, spp, train_lanes):
     doom = build_scene(load_scene_description(DOOM), device=mesh.device)
     for name, (static, scene, cam), n_spp in (("lit stress-500", lit, spp[1]),
                                               ("doom_standin", doom, spp[2])):
-        reset_launch_counts()
+        P.reset_launches()
         t = time.time()
         out[name] = render_image(static, scene, C.resize(cam, width, height), width,
                                  height, spp=n_spp, seed=0, mesh=mesh)
-        counts[name] = launch_counts()
+        counts[name] = dict(P.LAUNCHES)
         log(f"[dp] rank {mesh.rank} of {mesh.size} on {mesh.device}: {name} "
             f"{width}x{height} {n_spp} spp in {time.time() - t:.2f} s; kernel "
             f"launches {counts[name]}")
@@ -2269,10 +2262,10 @@ def dp_rank(mesh, out_dir, width, height, spp, train_lanes):
     cam = C.resize(cam, width, height)
     lanes = wave_lanes(width, height, mesh.device, train_lanes)
     step = dist.sharded_train_step(static, mesh, lr=TRAIN_LR)
-    reset_launch_counts()
+    P.reset_launches()
     loss, params = step(G.get_params(scene), scene, cam, *lanes, 0,
                         torch.zeros((train_lanes, 3), device=mesh.device))
-    counts["train step"] = launch_counts()
+    counts["train step"] = dict(P.LAUNCHES)
     log(f"[dp] rank {mesh.rank}: sharded_train_step on {train_lanes // mesh.size} of "
         f"{train_lanes} lanes, loss {float(loss):.6e}; kernel launches "
         f"{counts['train step']}")
@@ -2568,7 +2561,7 @@ def hdri_doom(device, width=16, height=12, spp=2, bounces=3):
     from paths_tpu_torch import camera as C
     from paths_tpu_torch.render import render_image
 
-    TT = _kernel_modules()[1]
+    from paths_tpu_torch.ops import tri_traverse as TT
     k4, held = TT.occludes_tris, [0]
 
     def k4_held(pt, n_chunks, o, d, excl_idx, excl_ent, t_max):
@@ -2585,14 +2578,14 @@ def hdri_doom(device, width=16, height=12, spp=2, bounces=3):
         static = dataclasses.replace(static, max_bounces=bounces)
         if dev == device:
             TT.occludes_tris = k4_held
-            reset_launch_counts()
+            P.reset_launches()
         try:
             imgs.append(render_image(static, scene, C.resize(cam, width, height), width,
                                      height, spp=spp, seed=0))
         finally:
             TT.occludes_tris = k4
         if dev == device:
-            counts = launch_counts()
+            counts = dict(P.LAUNCHES)
     if held[0] == 0:
         raise AssertionError("no environment K4 query was made")
     if counts["tri_any_hit"] == 0:

@@ -53,25 +53,8 @@ def build_bvh(tri_min: np.ndarray, tri_max: np.ndarray,
     return _build_bvh_py(tri_min, tri_max, leaf_size)
 
 
-_lib = None
-
-
-def _native_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = native.load_library("bvh_builder.cc", native.cxx(), native.CXX_FLAGS)
-        fp = ctypes.POINTER(ctypes.c_float)
-        ip = ctypes.POINTER(ctypes.c_int32)
-        lp = ctypes.POINTER(ctypes.c_int64)
-        lib.paths_build_bvh.restype = ctypes.c_int
-        lib.paths_build_bvh.argtypes = [fp, fp, ctypes.c_int64, ctypes.c_int32,
-                                        fp, fp, ip, ip, ip, ip, lp, lp, ip]
-        _lib = lib
-    return _lib
-
-
 def _build_bvh_native(tri_min, tri_max, leaf_size) -> FlatBvh:
-    lib = _native_lib()
+    lib = native.library("bvh_builder.cc")
     n = len(tri_min)
     tmin = np.ascontiguousarray(tri_min, np.float32)
     tmax = np.ascontiguousarray(tri_max, np.float32)

@@ -1,8 +1,16 @@
-"""Builds the port's native sources (``csrc/``) at first use and loads them
-with ``ctypes``: the CUDA kernels with ``nvcc`` for ``sm_90a``, and with
-``g++`` the host C++ BVH builder, the OBJ and PLY parsers
-(``load_obj_native``, ``load_ply_native``) and the CPU path tracer (the
-oracle, ``cpu_render``).
+"""The one place where the port's native sources (``csrc/``) are declared,
+built, bound and called: the CUDA kernels, built with ``nvcc`` for
+``sm_90a``, and with ``g++`` the host C++ BVH builder, the OBJ and PLY
+parsers (``load_obj_native``, ``load_ply_native``) and the CPU path tracer
+(the oracle, ``cpu_render``).
+
+``LIBRARIES`` declares each source once: its compiler and flags and each
+``extern "C"`` entry point with its ctypes restype and argument types, and
+for a kernel the keys it is counted under.  ``library(source)`` builds and
+binds a library at its first use; ``launch`` calls a kernel: its tensors
+by pointer, on the current stream, raising on a CUDA error and counting
+the launch in ``profiling.LAUNCHES``.  ``check`` and ``check_rays`` are the
+kernel wrappers' argument checks.
 
 Each library is compiled once per version of its source and flags into
 ``build/paths_tpu_torch/`` beside the package (the file name carries a hash
@@ -23,8 +31,10 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
+import torch
 
 from paths_tpu_torch import profiling as P
 
@@ -58,6 +68,92 @@ def cxx() -> str:
         raise RuntimeError("no C++ compiler (g++) found: the BVH builder, "
                            "the mesh parsers and the CPU tracer cannot be built")
     return found
+
+
+class Entry(NamedTuple):
+    """An ``extern "C"`` entry point: its ctypes restype and argument types
+    and, for a kernel, the keys of ``profiling.LAUNCHES`` its wrappers
+    count it under."""
+    restype: object
+    argtypes: list
+    keys: tuple = ()
+
+
+class Library(NamedTuple):
+    """A source of ``csrc/``: its compiler (a function that finds it), its
+    flags and its entry points by name."""
+    compiler: Callable[[], str]
+    flags: list
+    entries: dict
+
+
+_p, _i, _u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_i32, _i64 = ctypes.c_int32, ctypes.c_int64
+_fp, _dp = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_double)
+_i32p, _i64p = ctypes.POINTER(_i32), ctypes.POINTER(_i64)
+
+# Every library of csrc/.  A kernel takes its tensors by pointer, its counts
+# as int or uint32, the stream last, and returns a cudaError_t.
+LIBRARIES = {
+    "sphere_traverse.cu": Library(nvcc, NVCC_FLAGS, {
+        # table, nodes, o, d, excl, t_init, n, t, gid, ent, stream: K1, K8
+        "sphere_closest_hit": Entry(_i, [_p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p],
+                                    ("sphere_closest_hit", "scan_sphere_closest_hit")),
+        # table, nodes, o, d, excl, excl_ent, t_max, n, occluded, stream: K2, K9
+        "sphere_any_hit": Entry(_i, [_p, _p, _p, _p, _p, _p, _p, _i, _p, _p],
+                                ("sphere_any_hit", "scan_sphere_any_hit"))}),
+    "tri_traverse.cu": Library(nvcc, NVCC_FLAGS, {
+        # tris, meta, nodes, o, d, excl, t_init, n, t, gid, ent, stream: K3, K7
+        "tri_closest_hit": Entry(_i, [_p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p],
+                                 ("tri_closest_hit", "scan_tri_closest_hit")),
+        # tris, meta, nodes, o, d, excl, excl_ent, t_max, n, occluded, stream: K4, K9
+        "tri_any_hit": Entry(_i, [_p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p],
+                             ("tri_any_hit", "scan_tri_any_hit"))}),
+    "flat_spheres.cu": Library(nvcc, NVCC_FLAGS, {
+        # table, rows, o, d, excl, t_init, n, t, gid, ent, stream: K5
+        "flat_sphere_closest_hit": Entry(_i, [_p, _i, _p, _p, _p, _p, _i, _p, _p, _p, _p],
+                                         ("flat_sphere_closest_hit",)),
+        # table, rows, o, d, excl, excl_ent, t_max, n, occluded, stream: K5
+        "flat_sphere_any_hit": Entry(_i, [_p, _i, _p, _p, _p, _p, _p, _i, _p, _p],
+                                     ("flat_sphere_any_hit",))}),
+    "packet_bvh.cu": Library(nvcc, NVCC_FLAGS, {
+        # tree, tris, o, d, excl, t_init, n, t, gid, ent, stream: K6
+        "packet_closest_hit": Entry(_i, [_p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p],
+                                    ("packet_closest_hit",))}),
+    "lane_rng.cu": Library(nvcc, NVCC_FLAGS, {
+        # seed, seed word, pixel, sample, bounce, bounce_all, dim, n, out, stream
+        "lane_shading_uniform": Entry(_i, [_u32, _p, _p, _p, _p, _u32, _u32, _i, _p, _p],
+                                      ("rng_uniform",)),
+        # seed, seed word, pixel, sample, m, n_pat, square_tag, disk_tag, n, out, stream
+        "lane_camera_cmj": Entry(_i, [_u32, _p, _p, _p, _u32, _u32, _u32, _u32, _i, _p, _p],
+                                 ("rng_camera",))}),
+    "bvh_builder.cc": Library(cxx, CXX_FLAGS, {
+        # tri_min, tri_max, n, leaf_size, node_min, node_max, hit, miss, start,
+        # count, order, n_nodes, depth
+        "paths_build_bvh": Entry(_i, [_fp, _fp, _i64, _i32, _fp, _fp, _i32p, _i32p,
+                                      _i32p, _i32p, _i64p, _i64p, _i32p])}),
+    "mesh_io.cc": Library(cxx, CXX_FLAGS, {
+        "paths_obj_load": Entry(_p, [ctypes.c_char_p, _i64p]),
+        "paths_obj_model_info": Entry(_i, [_p, _i64, _i64p, _i64p, _i32p, _i32p]),
+        "paths_obj_model_data": Entry(_i, [_p, _i64, _dp, _i64p, _dp, _dp]),
+        "paths_obj_free": Entry(None, [_p]),
+        "paths_ply_load": Entry(_p, [ctypes.c_char_p, _i64p, _i64p, _i32p]),
+        "paths_ply_data": Entry(_i, [_p, _dp, _i64p, _dp]),
+        "paths_ply_free": Entry(None, [_p])}),
+    "cpu_tracer.cc": Library(cxx, CXX_FLAGS, {
+        # Sizes and counts as int, the seed as uint64, every array a pointer.
+        "paths_cpu_render": Entry(_i, (
+            [_i, _i, _i, ctypes.c_uint64, _i, _i, _p]  # width .. max_bounces, cam17
+            + [_i, _p, _p, _p]  # spheres
+            + [_i, _p, _p, _p, _p, _p, _p, _p, _p]  # triangles
+            + [_i, _p, _p, _p, _p, _p, _p, _p, _p]  # entities
+            + [_i, _p, _p, _p, _p, _p, _p]  # lights
+            + [_i, _p, _p, _i, _i, _p]  # sky
+            + [_p]))}),  # out
+}
+_SOURCE = {name: source for source, lib in LIBRARIES.items() for name in lib.entries}
+P.LAUNCHES.update(dict.fromkeys(
+    (k for lib in LIBRARIES.values() for e in lib.entries.values() for k in e.keys), 0))
 
 
 def _native_target(compiler: str) -> bytes:
@@ -108,66 +204,97 @@ def load_library(source: str, compiler: str, flags: list[str],
     return lib
 
 
+_libs: dict = {}  # source -> its bound library
+_calls: dict = {}  # kernel entry point -> its call (_bind)
+
+
+def library(source: str, verbose: bool = False) -> ctypes.CDLL:
+    """The library of ``csrc/<source>``, built (``load_library``) and its
+    entry points bound as ``LIBRARIES`` declares them at the first call."""
+    lib = _libs.get(source)
+    if lib is None:
+        decl = LIBRARIES[source]
+        lib = load_library(source, decl.compiler(), decl.flags, verbose)
+        for name, e in decl.entries.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = e.restype, e.argtypes
+        _libs[source] = lib
+    return lib
+
+
 def build_all(verbose: bool = False) -> dict:
-    """Build (or find built) and bind every library of ``csrc/`` at once,
-    one compiler process each: the five CUDA libraries, the host BVH
-    builder, the mesh parsers and the CPU tracer.  Processes that will render together on the
-    card call it first, so that none of them compiles while the others
-    wait.  verbose prints ptxas's report of each kernel.  Returns {source:
-    seconds}."""
-    from paths_tpu_torch.bvh import build as BB
-    from paths_tpu_torch.ops import chunk_scan as CS
-    from paths_tpu_torch.ops import lane_rng as RNG
-    from paths_tpu_torch.ops import packet_traverse as PK
-    from paths_tpu_torch.ops import sphere_traverse as ST
-    from paths_tpu_torch.ops import tri_traverse as TT
-
-    jobs = {"sphere_traverse.cu": lambda: ST.build_kernels(verbose),
-            "tri_traverse.cu": lambda: TT.build_kernels(verbose),
-            "flat_spheres.cu": lambda: CS.build_kernels(verbose),
-            "packet_bvh.cu": lambda: PK.build_kernels(verbose),
-            "lane_rng.cu": lambda: RNG.build_kernels(verbose),
-            "bvh_builder.cc": BB._native_lib,
-            "mesh_io.cc": _mesh_lib,
-            "cpu_tracer.cc": _tracer_lib}
-
-    def timed(fn):
+    """Build (or find built) and bind every library of ``LIBRARIES`` at
+    once, one compiler process each.  Processes that will render together
+    on the card call it first, so that none of them compiles while the
+    others wait.  verbose prints the compilers' messages (ptxas's report of
+    each kernel).  Returns {source: seconds}."""
+    def timed(source):
         t = time.time()
-        fn()
+        library(source, verbose)
         return time.time() - t
 
-    with ThreadPoolExecutor(len(jobs)) as ex:
-        futures = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
-        return {name: f.result() for name, f in futures.items()}
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        futures = {source: ex.submit(timed, source) for source in LIBRARIES}
+        return {source: f.result() for source, f in futures.items()}
 
 
-_mesh = None
+def _bind(entry: str):
+    """A kernel's call: its arguments converted as its declaration says,
+    decided here once -- a pointer argument's tensor passed as its
+    ``data_ptr()`` and None as a null pointer, every other as itself."""
+    fn = getattr(library(_SOURCE[entry]), entry)
+    ptr = tuple(t is _p for t in LIBRARIES[_SOURCE[entry]].entries[entry].argtypes[:-1])
+
+    def call(args, stream):
+        return fn(*[a.data_ptr() if p and a is not None else a
+                    for p, a in zip(ptr, args)], stream)
+
+    _calls[entry] = call
+    return call
 
 
-def _mesh_lib() -> ctypes.CDLL:
-    global _mesh
-    if _mesh is None:
-        lib = load_library("mesh_io.cc", cxx(), CXX_FLAGS)
-        c = ctypes
-        i64p, i32p = c.POINTER(c.c_int64), c.POINTER(c.c_int32)
-        dp = c.POINTER(c.c_double)
-        lib.paths_obj_load.restype = c.c_void_p
-        lib.paths_obj_load.argtypes = [c.c_char_p, i64p]
-        lib.paths_obj_model_info.restype = c.c_int
-        lib.paths_obj_model_info.argtypes = [c.c_void_p, c.c_int64, i64p, i64p,
-                                             i32p, i32p]
-        lib.paths_obj_model_data.restype = c.c_int
-        lib.paths_obj_model_data.argtypes = [c.c_void_p, c.c_int64, dp, i64p, dp, dp]
-        lib.paths_obj_free.restype = None
-        lib.paths_obj_free.argtypes = [c.c_void_p]
-        lib.paths_ply_load.restype = c.c_void_p
-        lib.paths_ply_load.argtypes = [c.c_char_p, i64p, i64p, i32p]
-        lib.paths_ply_data.restype = c.c_int
-        lib.paths_ply_data.argtypes = [c.c_void_p, dp, i64p, dp]
-        lib.paths_ply_free.restype = None
-        lib.paths_ply_free.argtypes = [c.c_void_p]
-        _mesh = lib
-    return _mesh
+def launch(entry: str, key: str, device, *args) -> None:
+    """Launch kernel `entry` with `args` (its arguments before the stream:
+    tensors, None for a null pointer, integers) on the current stream of
+    `device`, the lanes' device; raises RuntimeError on a CUDA error and
+    counts the launch under `key` (``profiling.launched``).  The caller
+    has checked the arguments (``check``)."""
+    call = _calls.get(entry) or _bind(entry)
+    err = call(args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{key} launch failed: cudaError_t {err}")
+    P.launched(key)
+
+
+def check(name: str, x, dtype, shape, device, align16: bool = False) -> None:
+    """A kernel argument as its launch takes it: on `device`, of `dtype`
+    (else TypeError) and `shape`, contiguous and, with align16, 16-byte
+    aligned (the kernel reads it as float4); raises ValueError."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if align16 and x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (the kernel reads float4)")
+
+
+def check_rays(o, d, excl_idx, lane_args=()) -> int:
+    """A traversal kernel's lanes (K1-K9): o, d (N, 3) f32, excl_idx (N,)
+    i32 and each (name, x, dtype) of lane_args (N,), on o's device
+    (``check``), and N below 2**31.  Returns N."""
+    dev, n = o.device, o.shape[0]
+    check("o", o, torch.float32, (n, 3), dev)
+    check("d", d, torch.float32, (n, 3), dev)
+    check("excl_idx", excl_idx, torch.int32, (n,), dev)
+    for name, x, dtype in lane_args:
+        check(name, x, dtype, (n,), dev)
+    if n >= 2 ** 31:
+        raise ValueError("too many lanes for one launch")
+    return n
 
 
 def _ptr(a, ctype):
@@ -181,7 +308,7 @@ def load_obj_native(path: str):
     None, diffuse (3,) f64 or None), or None where the parser gives up (a
     file it cannot read), so that the caller parses it in Python.  A failed
     build raises."""
-    lib = _mesh_lib()
+    lib = library("mesh_io.cc")
     n_models = ctypes.c_int64(0)
     h = lib.paths_obj_load(os.fsencode(path), ctypes.byref(n_models))
     if not h:
@@ -216,7 +343,7 @@ def load_ply_native(path: str):
     None where the parser gives up (a file it cannot read, no end_header, a
     binary body shorter than its header says), so that the caller parses it
     in Python.  A failed build raises."""
-    lib = _mesh_lib()
+    lib = library("mesh_io.cc")
     nv, nf = ctypes.c_int64(0), ctypes.c_int64(0)
     has_col = ctypes.c_int32(0)
     h = lib.paths_ply_load(os.fsencode(path), ctypes.byref(nv), ctypes.byref(nf),
@@ -235,30 +362,6 @@ def load_ply_native(path: str):
         lib.paths_ply_free(h)
 
 
-_tracer = None
-
-
-def _tracer_lib() -> ctypes.CDLL:
-    global _tracer
-    if _tracer is None:
-        lib = load_library("cpu_tracer.cc", cxx(), CXX_FLAGS)
-        i, u64 = ctypes.c_int, ctypes.c_uint64
-        p = ctypes.c_void_p
-        # paths_cpu_render's arguments, in order (csrc/cpu_tracer.cc):
-        # sizes and counts as int, the seed as uint64, every array a pointer.
-        lib.paths_cpu_render.argtypes = (
-            [i, i, i, u64, i, i, p]  # width .. max_bounces, cam17
-            + [i, p, p, p]  # spheres
-            + [i, p, p, p, p, p, p, p, p]  # triangles
-            + [i, p, p, p, p, p, p, p, p]  # entities
-            + [i, p, p, p, p, p, p]  # lights
-            + [i, p, p, i, i, p]  # sky
-            + [p])  # out
-        lib.paths_cpu_render.restype = i
-        _tracer = lib
-    return _tracer
-
-
 def cpu_render(static, scene, cam, width: int, height: int, spp: int,
                seed: int = 0, n_threads: int = 4, max_bounces: int = 10):
     """Render with the C++ CPU tracer (``csrc/cpu_tracer.cc``, port of
@@ -270,7 +373,7 @@ def cpu_render(static, scene, cam, width: int, height: int, spp: int,
     Rust renderer cannot BSDF-sample (Cook-Torrance, Fresnel:
     material.rs:81-88), which the tracer refuses.  A failed build
     raises."""
-    lib = _tracer_lib()
+    lib = library("cpu_tracer.cc")
 
     def host(t, dtype, n=None):
         a = t.detach().cpu().numpy()

@@ -37,18 +37,16 @@ ValueError.
 
 Dispatch, as for K1-K4: a wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches the kernel or raises -- it never falls back.
-Each wrapper counts its kernel launches in this module's ``LAUNCHES`` and
-nowhere else: a K8 call adds one to ``LAUNCHES["scan_sphere_closest_hit"]``
-and none to ``sphere_traverse.LAUNCHES``, although it runs K1's kernel.  The
-kernels are built with ``nvcc`` at first use into ``build/`` beside the
-package and loaded with ``ctypes``.  Every wrapper detaches o, d, t_init and
+Each wrapper's launches are counted under its own key of
+``profiling.LAUNCHES`` and no other: a K8 call adds one to
+``scan_sphere_closest_hit`` and none to ``sphere_closest_hit``, although it
+runs K1's kernel.  The kernels are declared, built at first use and
+launched by ``native.py``.  Every wrapper detaches o, d, t_init and
 t_max first, so its outputs carry no gradient on any device
 (``sphere_traverse.cut``, whose module docstring says why).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -70,48 +68,6 @@ FLAT_BATCH = 8
 TRI_ROWS_PER_CHUNK = 32
 SPH_ROWS_PER_CHUNK = 16
 
-# Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"flat_sphere_closest_hit": 0, "flat_sphere_any_hit": 0,
-            "scan_tri_closest_hit": 0, "scan_sphere_closest_hit": 0,
-            "scan_tri_any_hit": 0, "scan_sphere_any_hit": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-# ---------------------------------------------------------------------------
-# CUDA kernels: build, bind, launch.
-# ---------------------------------------------------------------------------
-
-_libs = {}
-
-
-def build_kernels(verbose: bool = False) -> dict:
-    """Build csrc/flat_spheres.cu (once per source version) and load it:
-    {"flat": CDLL}.  K7, K8 and K9 build their walks' libraries through
-    tri_traverse and sphere_traverse."""
-    if not _libs:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        flat = native.load_library("flat_spheres.cu", native.nvcc(),
-                                   native.NVCC_FLAGS, verbose)
-        for fn, argtypes in (
-                (flat.flat_sphere_closest_hit, [p, i, p, p, p, p, i, p, p, p, p]),
-                (flat.flat_sphere_any_hit, [p, i, p, p, p, p, p, i, p, p])):
-            fn.argtypes, fn.restype = argtypes, i
-        _libs.update(flat=flat)
-    return _libs
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _check_cuda(o):
-    if o.device.type != "cuda":
-        raise ValueError(f"unsupported device {o.device}")
-
 
 def closest_hit_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
                         t_init):
@@ -123,8 +79,7 @@ def closest_hit_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
     o, d, t_init = ST.cut(o, d, t_init)
     if o.device.type == "cpu":
         return TT.closest_hit_tris_plain(pt, n_chunks, o, d, excl_idx, t_init)
-    return TT.walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
-                               "scan_tri_closest_hit")
+    return TT.walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, "scan_tri_closest_hit")
 
 
 def closest_hit_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
@@ -135,7 +90,7 @@ def closest_hit_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
     o, d, t_init = ST.cut(o, d, t_init)
     if o.device.type == "cpu":
         return ST.closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
-    return ST.walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
+    return ST.walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init,
                                "scan_sphere_closest_hit")
 
 
@@ -150,7 +105,7 @@ def occludes_chunked(pt: TT.PackedTris, n_chunks: int, o, d, excl_idx,
         return TT.occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent,
                                       t_max)
     return TT.walk_any_hit(pt, n_chunks, o, d, excl_idx, excl_ent, t_max,
-                           LAUNCHES, "scan_tri_any_hit")
+                           "scan_tri_any_hit")
 
 
 def occludes_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
@@ -163,30 +118,20 @@ def occludes_spheres(ps: ST.PackedSpheres, n_chunks: int, o, d, excl_idx,
         return ST.occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent,
                                          t_max)
     return ST.walk_any_hit(ps, n_chunks, o, d, excl_idx, excl_ent, t_max,
-                           LAUNCHES, "scan_sphere_any_hit")
+                           "scan_sphere_any_hit")
 
 
 def _check_flat(table, o, d, excl_idx, lane_args):
-    """The flat kernel's launch checks (device, dtype, shape, contiguity, at
-    most SPH_FLAT_MAX_ROWS table rows, the table 16-byte aligned).  Returns
-    the table's row count."""
-    dev, n = o.device, o.shape[0]
+    """The flat kernel's launch checks: the table, (R, 128) f32 with 1 to
+    SPH_FLAT_MAX_ROWS rows on the lanes' device, 16-byte aligned (its slots
+    read as float4), and the lanes (``native.check_rays``).  Returns (R,
+    the lane count)."""
     rows = table.shape[0] if table.dim() == 2 else -1
-    ST._check("table", table, torch.float32, (rows, 128), dev)
+    native.check("table", table, torch.float32, (rows, 128), o.device, align16=True)
     if not 0 < rows <= SPH_FLAT_MAX_ROWS:
         raise ValueError(f"the flat kernel takes 1 to {SPH_FLAT_MAX_ROWS} "
                          f"table rows, not {rows}")
-    if table.data_ptr() % 16:
-        raise ValueError("the table must be 16-byte aligned (the kernel reads "
-                         "slots as float4)")
-    ST._check("o", o, torch.float32, (n, 3), dev)
-    ST._check("d", d, torch.float32, (n, 3), dev)
-    ST._check("excl_idx", excl_idx, torch.int32, (n,), dev)
-    for name, x, dtype in lane_args:
-        ST._check(name, x, dtype, (n,), dev)
-    if n >= 2 ** 31:
-        raise ValueError("too many lanes for one launch")
-    return rows
+    return rows, native.check_rays(o, d, excl_idx, lane_args)
 
 
 def flat_closest_hit(table, o, d, excl_idx, t_init):
@@ -196,20 +141,15 @@ def flat_closest_hit(table, o, d, excl_idx, t_init):
     o, d, t_init = ST.cut(o, d, t_init)
     if o.device.type == "cpu":
         return ST.closest_hit_spheres_plain(table, o, d, excl_idx, t_init)
-    _check_cuda(o)
-    rows = _check_flat(table, o, d, excl_idx, [("t_init", t_init, torch.float32)])
-    n = o.shape[0]
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    rows, n = _check_flat(table, o, d, excl_idx, [("t_init", t_init, torch.float32)])
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     gid = torch.empty(n, dtype=torch.int32, device=o.device)
     ent = torch.empty(n, dtype=torch.int32, device=o.device)
-    if n == 0:
-        return t, gid, ent
-    err = build_kernels()["flat"].flat_sphere_closest_hit(
-        table.data_ptr(), rows, o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(),
-        t_init.data_ptr(), n, t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
-        _stream(o))
-    ST._raise_on(err, "flat_sphere_closest_hit")
-    LAUNCHES["flat_sphere_closest_hit"] += 1
+    if n:
+        native.launch("flat_sphere_closest_hit", "flat_sphere_closest_hit", o.device, table,
+                      rows, o, d, excl_idx, t_init, n, t, gid, ent)
     return t, gid, ent
 
 
@@ -220,16 +160,12 @@ def flat_occludes(table, o, d, excl_idx, excl_ent, t_max):
     o, d, t_max = ST.cut(o, d, t_max)
     if o.device.type == "cpu":
         return ST.occludes_spheres_plain(table, o, d, excl_idx, excl_ent, t_max)
-    _check_cuda(o)
-    rows = _check_flat(table, o, d, excl_idx, [("excl_ent", excl_ent, torch.int32),
-                                               ("t_max", t_max, torch.float32)])
-    n = o.shape[0]
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    rows, n = _check_flat(table, o, d, excl_idx, [("excl_ent", excl_ent, torch.int32),
+                                                  ("t_max", t_max, torch.float32)])
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
-    err = build_kernels()["flat"].flat_sphere_any_hit(
-        table.data_ptr(), rows, o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(),
-        excl_ent.data_ptr(), t_max.data_ptr(), n, occ.data_ptr(), _stream(o))
-    ST._raise_on(err, "flat_sphere_any_hit")
-    LAUNCHES["flat_sphere_any_hit"] += 1
+    if n:
+        native.launch("flat_sphere_any_hit", "flat_sphere_any_hit", o.device, table, rows, o,
+                      d, excl_idx, excl_ent, t_max, n, occ)
     return occ

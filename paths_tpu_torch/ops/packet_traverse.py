@@ -50,15 +50,14 @@ prunes every box beyond its running best, and reads nodes and slots as
 float4 through the read-only path.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches the kernel or raises -- it never falls back.  The
-wrapper counts its kernel launches in ``LAUNCHES``, and detaches o, d and
-t_init first, so its outputs carry no gradient on any device
-(``sphere_traverse.cut``, whose module docstring says why).
+tensors it launches the kernel or raises -- it never falls back.  Its
+launches are counted in ``profiling.LAUNCHES`` (``native.launch``); it
+detaches o, d and t_init first, so its outputs carry no gradient on any
+device (``sphere_traverse.cut``, whose module docstring says why).
 """
 
 from __future__ import annotations
 
-import ctypes
 import types
 from typing import NamedTuple
 
@@ -66,18 +65,10 @@ import numpy as np
 import torch
 
 from paths_tpu_torch import native
-from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on, cut
+from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _fma, cut
 from paths_tpu_torch.ops.tri_traverse import (BOX_PAD, NODE_FLOATS, PACK_LEAF, TRI_STRIDE,
                                                _leaf_map, _row_hierarchy)
 from paths_tpu_torch.ops.tri_traverse import _pad8 as tris_pad
-
-# Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"packet_closest_hit": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class PackedBvh(NamedTuple):
@@ -282,45 +273,22 @@ def closest_hit_packet_plain(pt: PackedBvh, o, d, excl_idx, t_init):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: build, bind, launch.
+# CUDA kernel: checks and launch (native.py).
 # ---------------------------------------------------------------------------
 
-_lib = None
 
-
-def build_kernels(verbose: bool = False) -> ctypes.CDLL:
-    """Build csrc/packet_bvh.cu (once per source version) and load it."""
-    global _lib
-    if _lib is None:
-        lib = native.load_library("packet_bvh.cu", native.nvcc(),
-                                  native.NVCC_FLAGS, verbose)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.packet_closest_hit.argtypes = [p, p, p, p, p, p, i, p, p, p, p]
-        lib.packet_closest_hit.restype = i
-        _lib = lib
-    return _lib
-
-
-def _check_launch(pt: PackedBvh, o, d, excl_idx, t_init):
+def _check_launch(pt: PackedBvh, o, d, excl_idx, t_init) -> int:
     """What the kernel takes: the leaf rows, (R, 128) f32, and the tree,
-    (M, NODE_FLOATS) f32 with a root, both 16-byte aligned; lanes o, d
-    (N, 3) f32, excl_idx (N,) i32, t_init (N,) f32; every tensor
-    contiguous and on o's device."""
-    dev, n = o.device, o.shape[0]
-    _check("tris", pt.tris, torch.float32, (pt.tris.shape[0], 128), dev)
-    _check("tree", pt.tree, torch.float32, (pt.tree.shape[0], NODE_FLOATS), dev)
+    (M, NODE_FLOATS) f32 with a root, both 16-byte aligned and on the
+    lanes' device; lanes o, d (N, 3) f32, excl_idx (N,) i32, t_init (N,)
+    f32 (``native.check_rays``).  Returns N."""
+    dev = o.device
+    native.check("tris", pt.tris, torch.float32, (pt.tris.shape[0], 128), dev, align16=True)
+    native.check("tree", pt.tree, torch.float32, (pt.tree.shape[0], NODE_FLOATS), dev,
+                 align16=True)
     if pt.tree.shape[0] == 0:
         raise ValueError("the tree has no root")
-    for name, x in (("tris", pt.tris), ("tree", pt.tree)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
-                             "float4)")
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("excl_idx", excl_idx, torch.int32, (n,), dev)
-    _check("t_init", t_init, torch.float32, (n,), dev)
-    if n >= 2 ** 31:
-        raise ValueError("too many lanes for one launch")
+    return native.check_rays(o, d, excl_idx, [("t_init", t_init, torch.float32)])
 
 
 def closest_hit_packet(pt: PackedBvh, o, d, excl_idx, t_init):
@@ -333,19 +301,11 @@ def closest_hit_packet(pt: PackedBvh, o, d, excl_idx, t_init):
         return closest_hit_packet_plain(pt, o, d, excl_idx, t_init)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
-    _check_launch(pt, o, d, excl_idx, t_init)
-    n = o.shape[0]
+    n = _check_launch(pt, o, d, excl_idx, t_init)
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     gid = torch.empty(n, dtype=torch.int32, device=o.device)
     ent = torch.empty(n, dtype=torch.int32, device=o.device)
-    if n == 0:
-        return t, gid, ent
-    err = build_kernels().packet_closest_hit(
-        pt.tree.data_ptr(), pt.tris.data_ptr(),
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
-        t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
-    _raise_on(err, "packet_closest_hit")
-    LAUNCHES["packet_closest_hit"] += 1
+    if n:
+        native.launch("packet_closest_hit", "packet_closest_hit", o.device, pt.tree, pt.tris,
+                      o, d, excl_idx, t_init, n, t, gid, ent)
     return t, gid, ent

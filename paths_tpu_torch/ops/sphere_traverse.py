@@ -24,12 +24,11 @@ agree bit for bit.
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises -- it never falls back.  Each
-wrapper counts its kernel launches in ``LAUNCHES``; ``ops/chunk_scan.py``'s
-K8 and K9 launch the closest-hit and any-hit walks through
-``walk_closest_hit`` and ``walk_any_hit`` and count them in their own
-module's ``LAUNCHES``, not here.  The kernels are built
-with ``nvcc`` at first use into ``build/`` beside the package and loaded
-with ``ctypes``.
+wrapper's launches are counted under its own key of
+``profiling.LAUNCHES``; ``ops/chunk_scan.py``'s K8 and K9 launch the
+closest-hit and any-hit walks through ``walk_closest_hit`` and
+``walk_any_hit`` under their keys, not these.  The kernels are declared,
+built at first use and launched by ``native.py``.
 
 Gradients: traversal is a discrete selector, and every public traversal
 wrapper of ``ops/`` (K1-K9) detaches its rays and seeds (o, d, t_init,
@@ -47,7 +46,6 @@ reference's XLA scans are (``grad.py``).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -76,14 +74,6 @@ SPH_SPLIT = "morton"
 NODE_FLOATS = 8
 BOX_PAD = 1e-4
 WALK_STACK = 64
-
-# Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"sphere_closest_hit": 0, "sphere_any_hit": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class PackedSpheres(NamedTuple):
@@ -319,81 +309,37 @@ def occludes_spheres_plain(table, o, d, excl_idx, excl_ent, t_max):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels: build, bind, launch.
+# CUDA kernels: checks and launches (native.py).
 # ---------------------------------------------------------------------------
 
-_lib = None
 
-
-def build_kernels(verbose: bool = False) -> ctypes.CDLL:
-    """Build csrc/sphere_traverse.cu (once per source version) and load
-    it."""
-    global _lib
-    if _lib is None:
-        lib = native.load_library("sphere_traverse.cu", native.nvcc(),
-                                  native.NVCC_FLAGS, verbose)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sphere_closest_hit.argtypes = [p, p, p, p, p, p, i, p, p, p, p]
-        lib.sphere_closest_hit.restype = i
-        lib.sphere_any_hit.argtypes = [p, p, p, p, p, p, p, i, p, p]
-        lib.sphere_any_hit.restype = i
-        _lib = lib
-    return _lib
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_launch(ps: PackedSpheres, n_chunks, o, d, excl_idx, lane_args):
+def _check_launch(ps: PackedSpheres, n_chunks, o, d, excl_idx, lane_args) -> int:
+    """What the walks take: the table, (R, 128) f32, and its meta on the
+    lanes' device, the chunk count within the meta's rows, the tree,
+    (M, NODE_FLOATS) f32 with a root, the table and tree 16-byte aligned
+    (read as float4), and the lanes (``native.check_rays``).  Returns the
+    lane count."""
     dev = o.device
-    n = o.shape[0]
-    _check("table", ps.tris, torch.float32, (ps.tris.shape[0], 128), dev)
-    _check("chunk_meta", ps.chunk_meta, torch.float32,
-           (ps.chunk_meta.shape[0], 128), dev)
+    native.check("table", ps.tris, torch.float32, (ps.tris.shape[0], 128), dev,
+                 align16=True)
+    native.check("chunk_meta", ps.chunk_meta, torch.float32,
+                 (ps.chunk_meta.shape[0], 128), dev)
     if not 0 <= n_chunks <= ps.chunk_meta.shape[0]:
         raise ValueError(f"n_chunks {n_chunks} exceeds the meta's "
                          f"{ps.chunk_meta.shape[0]} rows")
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("excl_idx", excl_idx, torch.int32, (n,), dev)
-    for name, x, dtype in lane_args:
-        _check(name, x, dtype, (n,), dev)
-    if n >= 2 ** 31:
-        raise ValueError("too many lanes for one launch")
-
-
-def _check_nodes(ps: PackedSpheres, device):
-    """What the walks read besides the table: the tree,
-    (M, NODE_FLOATS) f32 rows with a root on the lanes' device, contiguous,
-    and the table and tree 16-byte aligned (read as float4)."""
     if ps.nodes is None:
         raise ValueError("the table has no tree (nodes): pack it with "
                          "pack_spheres_chunked")
-    _check("nodes", ps.nodes, torch.float32, (ps.nodes.shape[0], NODE_FLOATS), device)
+    native.check("nodes", ps.nodes, torch.float32, (ps.nodes.shape[0], NODE_FLOATS), dev,
+                 align16=True)
     if ps.nodes.shape[0] == 0:
         raise ValueError("the tree has no root")
-    for name, x in (("table", ps.tris), ("nodes", ps.nodes)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
-                             "float4)")
+    return native.check_rays(o, d, excl_idx, lane_args)
 
 
 def cut(*xs):
     """The wrappers' gradient cut (module docstring): each tensor detached."""
     return tuple(x.detach() for x in xs)
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
 def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
@@ -406,64 +352,40 @@ def closest_hit_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
     o, d, t_init = cut(o, d, t_init)
     if o.device.type == "cpu":
         return closest_hit_spheres_plain(ps.tris, o, d, excl_idx, t_init)
-    return walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
-                            "sphere_closest_hit")
+    return walk_closest_hit(ps, n_chunks, o, d, excl_idx, t_init, "sphere_closest_hit")
 
 
 def walk_closest_hit(ps: PackedSpheres, n_chunks: int, o, d, excl_idx, t_init,
-                     launches: dict, key: str):
+                     key: str):
     """Launch the closest-hit walk on CUDA tensors (checks first; raises,
-    never falls back) and add one to launches[key] where it launches: the
-    walk of closest_hit_spheres (K1) and of chunk_scan.closest_hit_spheres
-    (K8), each counted in its own module's LAUNCHES."""
+    never falls back), counted under `key`: the walk of closest_hit_spheres
+    (K1) and of chunk_scan.closest_hit_spheres (K8), each under its own
+    key."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
-    _check_launch(ps, n_chunks, o, d, excl_idx,
-                  [("t_init", t_init, torch.float32)])
-    _check_nodes(ps, o.device)
-    n = o.shape[0]
+    n = _check_launch(ps, n_chunks, o, d, excl_idx, [("t_init", t_init, torch.float32)])
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     gid = torch.empty(n, dtype=torch.int32, device=o.device)
     ent = torch.empty(n, dtype=torch.int32, device=o.device)
-    if n == 0:
-        return t, gid, ent
-    lib = build_kernels()
-    err = lib.sphere_closest_hit(
-        ps.tris.data_ptr(), ps.nodes.data_ptr(),
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
-        t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
-    _raise_on(err, key)
-    launches[key] += 1
+    if n:
+        native.launch("sphere_closest_hit", key, o.device, ps.tris, ps.nodes, o, d,
+                      excl_idx, t_init, n, t, gid, ent)
     return t, gid, ent
 
 
 def walk_any_hit(ps: PackedSpheres, n_chunks: int, o, d, excl_idx, excl_ent,
-                 t_max, launches: dict, key: str):
+                 t_max, key: str):
     """Launch the any-hit walk on CUDA tensors (checks first; raises, never
-    falls back) and add one to launches[key] where it launches: the walk of
-    occludes_spheres (K2) and of chunk_scan.occludes_spheres (K9), each
-    counted in its own module's LAUNCHES."""
+    falls back), counted under `key`: the walk of occludes_spheres (K2) and
+    of chunk_scan.occludes_spheres (K9), each under its own key."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
-    _check_launch(ps, n_chunks, o, d, excl_idx,
-                  [("excl_ent", excl_ent, torch.int32),
-                   ("t_max", t_max, torch.float32)])
-    _check_nodes(ps, o.device)
-    n = o.shape[0]
+    n = _check_launch(ps, n_chunks, o, d, excl_idx, [("excl_ent", excl_ent, torch.int32),
+                                                     ("t_max", t_max, torch.float32)])
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
-    lib = build_kernels()
-    err = lib.sphere_any_hit(
-        ps.tris.data_ptr(), ps.nodes.data_ptr(),
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), excl_ent.data_ptr(),
-        t_max.data_ptr(), n, occ.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
-    _raise_on(err, key)
-    launches[key] += 1
+    if n:
+        native.launch("sphere_any_hit", key, o.device, ps.tris, ps.nodes, o, d, excl_idx,
+                      excl_ent, t_max, n, occ)
     return occ
 
 
@@ -476,5 +398,4 @@ def occludes_spheres(ps: PackedSpheres, n_chunks: int, o, d, excl_idx,
     o, d, t_max = cut(o, d, t_max)
     if o.device.type == "cpu":
         return occludes_spheres_plain(ps.tris, o, d, excl_idx, excl_ent, t_max)
-    return walk_any_hit(ps, n_chunks, o, d, excl_idx, excl_ent, t_max, LAUNCHES,
-                        "sphere_any_hit")
+    return walk_any_hit(ps, n_chunks, o, d, excl_idx, excl_ent, t_max, "sphere_any_hit")

@@ -37,25 +37,23 @@ bit for bit.
 
 Dispatch: a wrapper given CPU tensors runs the plain version (which does not
 read the hierarchy); given CUDA tensors it launches the kernel or raises --
-it never falls back.  Each wrapper counts its kernel launches in
-``LAUNCHES``.  ``ops/chunk_scan.py``'s K7 and K9 launch the same kernels
-through ``walk_closest_hit`` and ``walk_any_hit`` and count them in their
-own module's ``LAUNCHES``, not here.  The wrappers' outputs carry no
+it never falls back.  Each wrapper's launches are counted under its own
+key of ``profiling.LAUNCHES`` (``native.launch``).  ``ops/chunk_scan.py``'s
+K7 and K9 launch the same kernels through ``walk_closest_hit`` and
+``walk_any_hit`` under their keys, not these.  The wrappers' outputs carry no
 gradient on any device: they detach o, d, t_init and t_max first
 (``sphere_traverse.cut``, whose module docstring says why).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from paths_tpu_torch import native
-from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _check, _fma, _raise_on, cut
-from paths_tpu_torch.ops.sphere_traverse import _check_launch as _check_table_and_lanes
+from paths_tpu_torch.ops.sphere_traverse import BIG, DEAD, _fma, cut
 
 PACK_LEAF = 8  # triangle slots per row (one BVH leaf per row)
 TRI_STRIDE = 16  # floats per slot
@@ -73,14 +71,6 @@ REPACK_BYTES = 10 * 1024 * 1024
 NODE_FLOATS = 8
 BOX_PAD = 1e-4
 WALK_STACK = 64
-
-# Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"tri_closest_hit": 0, "tri_any_hit": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class PackedTris(NamedTuple):
@@ -389,95 +379,63 @@ def occludes_tris_plain(pt: PackedTris, n_chunks: int, o, d, excl_idx,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels: build, bind, launch.
+# CUDA kernels: checks and launches (native.py).
 # ---------------------------------------------------------------------------
 
-_lib = None
 
-
-def build_kernels(verbose: bool = False) -> ctypes.CDLL:
-    """Build csrc/tri_traverse.cu (once per source version) and load it."""
-    global _lib
-    if _lib is None:
-        lib = native.load_library("tri_traverse.cu", native.nvcc(),
-                                  native.NVCC_FLAGS, verbose)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tri_closest_hit.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p]
-        lib.tri_closest_hit.restype = i
-        lib.tri_any_hit.argtypes = [p, p, p, p, p, p, p, p, i, p, p]
-        lib.tri_any_hit.restype = i
-        _lib = lib
-    return _lib
-
-
-def _check_launch(pt: PackedTris, n_chunks, o, d, excl_idx, lane_args):
-    """The sphere kernels' launch checks, and what the walk reads besides:
-    the hierarchy, (M, NODE_FLOATS) f32 rows on o's device, contiguous, and
-    the table, meta and nodes 16-byte aligned (read as float4)."""
-    _check_table_and_lanes(pt, n_chunks, o, d, excl_idx, lane_args)
+def _check_launch(pt: PackedTris, n_chunks, o, d, excl_idx, lane_args) -> int:
+    """What the walks take: the table and its meta, (R, 128) and (C, 128)
+    f32 on the lanes' device, the chunk count within the meta's rows, the
+    hierarchy, (M, NODE_FLOATS) f32 with a root, the three 16-byte aligned
+    (read as float4), and the lanes (``native.check_rays``).  Returns the
+    lane count."""
+    dev = o.device
+    native.check("tris", pt.tris, torch.float32, (pt.tris.shape[0], 128), dev,
+                 align16=True)
+    native.check("chunk_meta", pt.chunk_meta, torch.float32,
+                 (pt.chunk_meta.shape[0], 128), dev, align16=True)
+    if not 0 <= n_chunks <= pt.chunk_meta.shape[0]:
+        raise ValueError(f"n_chunks {n_chunks} exceeds the meta's "
+                         f"{pt.chunk_meta.shape[0]} rows")
     if pt.nodes is None:
         raise ValueError("the table has no hierarchy (nodes): pack it with "
                          "pack_chunked")
-    _check("nodes", pt.nodes, torch.float32, (pt.nodes.shape[0], NODE_FLOATS), o.device)
+    native.check("nodes", pt.nodes, torch.float32, (pt.nodes.shape[0], NODE_FLOATS), dev,
+                 align16=True)
     if pt.nodes.shape[0] == 0:
         raise ValueError("the hierarchy has no root")
-    for name, x in (("tris", pt.tris), ("chunk_meta", pt.chunk_meta), ("nodes", pt.nodes)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
-                             "float4)")
+    return native.check_rays(o, d, excl_idx, lane_args)
 
 
-def walk_closest_hit(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init,
-                     launches: dict, key: str):
+def walk_closest_hit(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init, key: str):
     """Launch the closest-hit walk on CUDA tensors (checks first; raises, never
-    falls back) and add one to launches[key] where it launches: the walk of
-    closest_hit_tris (K3) and of chunk_scan.closest_hit_chunked (K7), each
-    counted in its own module's LAUNCHES."""
+    falls back), counted under `key`: the walk of closest_hit_tris (K3) and
+    of chunk_scan.closest_hit_chunked (K7), each under its own key."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
-    _check_launch(pt, n_chunks, o, d, excl_idx,
-                  [("t_init", t_init, torch.float32)])
-    n = o.shape[0]
+    n = _check_launch(pt, n_chunks, o, d, excl_idx, [("t_init", t_init, torch.float32)])
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     gid = torch.empty(n, dtype=torch.int32, device=o.device)
     ent = torch.empty(n, dtype=torch.int32, device=o.device)
-    if n == 0:
-        return t, gid, ent
-    lib = build_kernels()
-    err = lib.tri_closest_hit(
-        pt.tris.data_ptr(), pt.chunk_meta.data_ptr(), pt.nodes.data_ptr(),
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), t_init.data_ptr(), n,
-        t.data_ptr(), gid.data_ptr(), ent.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
-    _raise_on(err, key)
-    launches[key] += 1
+    if n:
+        native.launch("tri_closest_hit", key, o.device, pt.tris, pt.chunk_meta, pt.nodes,
+                      o, d, excl_idx, t_init, n, t, gid, ent)
     return t, gid, ent
 
 
 def walk_any_hit(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max,
-                 launches: dict, key: str):
+                 key: str):
     """Launch the any-hit walk on CUDA tensors (checks first; raises, never
-    falls back) and add one to launches[key] where it launches: the walk of
-    occludes_tris (K4) and of chunk_scan.occludes_chunked (K9)."""
+    falls back), counted under `key`: the walk of occludes_tris (K4) and of
+    chunk_scan.occludes_chunked (K9)."""
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
-    _check_launch(pt, n_chunks, o, d, excl_idx,
-                  [("excl_ent", excl_ent, torch.int32),
-                   ("t_max", t_max, torch.float32)])
-    n = o.shape[0]
+    n = _check_launch(pt, n_chunks, o, d, excl_idx, [("excl_ent", excl_ent, torch.int32),
+                                                     ("t_max", t_max, torch.float32)])
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
-    lib = build_kernels()
-    err = lib.tri_any_hit(
-        pt.tris.data_ptr(), pt.chunk_meta.data_ptr(), pt.nodes.data_ptr(),
-        o.data_ptr(), d.data_ptr(), excl_idx.data_ptr(), excl_ent.data_ptr(),
-        t_max.data_ptr(), n, occ.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
-    _raise_on(err, key)
-    launches[key] += 1
+    if n:
+        native.launch("tri_any_hit", key, o.device, pt.tris, pt.chunk_meta, pt.nodes, o, d,
+                      excl_idx, excl_ent, t_max, n, occ)
     return occ
 
 
@@ -488,8 +446,7 @@ def closest_hit_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, t_init):
     o, d, t_init = cut(o, d, t_init)
     if o.device.type == "cpu":
         return closest_hit_tris_plain(pt, n_chunks, o, d, excl_idx, t_init)
-    return walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, LAUNCHES,
-                            "tri_closest_hit")
+    return walk_closest_hit(pt, n_chunks, o, d, excl_idx, t_init, "tri_closest_hit")
 
 
 def occludes_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max):
@@ -499,5 +456,4 @@ def occludes_tris(pt: PackedTris, n_chunks: int, o, d, excl_idx, excl_ent, t_max
     o, d, t_max = cut(o, d, t_max)
     if o.device.type == "cpu":
         return occludes_tris_plain(pt, n_chunks, o, d, excl_idx, excl_ent, t_max)
-    return walk_any_hit(pt, n_chunks, o, d, excl_idx, excl_ent, t_max, LAUNCHES,
-                        "tri_any_hit")
+    return walk_any_hit(pt, n_chunks, o, d, excl_idx, excl_ent, t_max, "tri_any_hit")

@@ -12,9 +12,10 @@ trace (port of ``paths_tpu/profiling.py``).
     spans inside carry its id.  A unit inside another belongs to the outer;
   - ``record()``: records the spans, and the counts ``count`` adds, of its
     scope, in memory;
-  - ``launched(counts, key)``: a kernel wrapper's launch count, logged
-    inside ``launch_log()`` so that a CUDA graph's replays count what its
-    capture launched;
+  - ``LAUNCHES``: always-on counts of kernels run, by the keys
+    ``native.LIBRARIES`` declares; ``native.launch`` adds each launch
+    (``launched``), logged inside ``launch_log()`` so that a CUDA graph's
+    replays count what its capture launched; ``reset_launches()``;
   - ``NATIVE_LOAD_S`` and ``NATIVE_BUILDS``: always-on totals, by library,
     of ``native.load_library``'s seconds and compiles;
   - ``trace(logdir)``: the CLI's ``--profile``, a Chrome trace on disk.
@@ -41,6 +42,9 @@ from paths_tpu_torch import resolve_device
 # native.load_library (hashing the sources, a compile, dlopen) and compiles.
 NATIVE_LOAD_S: dict = {}
 NATIVE_BUILDS: dict = {}
+# Always on: kernels run by launch key since the last reset_launches(); the
+# keys are native.LIBRARIES', filled in when native is imported.
+LAUNCHES: dict = {}
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _record = None  # the Record being filled, or None
@@ -90,20 +94,26 @@ def count(key: str, n: int = 1) -> None:
         _record.counts[key] = _record.counts.get(key, 0) + n
 
 
-def launched(counts: dict, key: str) -> None:
-    """Counts one kernel launch in a wrapper's ``counts[key]`` (its module's
-    ``LAUNCHES``).  Inside ``launch_log()`` the launch is also logged, so
-    that whoever captured it into a CUDA graph counts it again at each
-    replay (``step_graphs.py``): the counts stay kernels run."""
-    counts[key] += 1
+def launched(key: str) -> None:
+    """Counts one kernel launch in ``LAUNCHES[key]``.  Inside
+    ``launch_log()`` the launch is also logged, so that whoever captured it
+    into a CUDA graph counts it again at each replay (``step_graphs.py``):
+    the counts stay kernels run."""
+    LAUNCHES[key] += 1
     if _launch_log is not None:
-        _launch_log.append((counts, key))
+        _launch_log.append(key)
+
+
+def reset_launches() -> None:
+    """Sets every count of ``LAUNCHES`` to 0."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 @contextlib.contextmanager
 def launch_log():
-    """Logs the launches that ``launched`` counts in the scope, as
-    ``(counts, key)`` pairs; yields the list."""
+    """Logs the keys of the launches that ``launched`` counts in the
+    scope; yields the list."""
     global _launch_log
     outer, _launch_log = _launch_log, []
     try:

@@ -161,7 +161,7 @@ class _Entry:
         self.aliased = aliased
         self.inputs = tuple(x if a else x.clone() for x, a in zip(inputs, aliased))
         self.graphs, self.requests, self.results = [], [], []
-        self.launched = []  # the kernel launches the graphs hold (profiling.launched)
+        self.launched = []  # the keys of the kernels the graphs launch (profiling.launched)
         pool = torch.cuda.graph_pool_handle()
         gen = fn(*consts, *self.inputs)
         spans = _Spans()
@@ -201,8 +201,8 @@ class _Entry:
             if not a:
                 buf.copy_(x)
         P.count("step_graph_replays", len(self.graphs))
-        for counts, k in self.launched:
-            counts[k] += 1
+        for k in self.launched:
+            P.LAUNCHES[k] += 1
         spans = _Spans()
         try:
             for g, req, static in zip(self.graphs, self.requests, self.results):

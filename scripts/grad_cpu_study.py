@@ -67,7 +67,7 @@ def main(argv=None):
     import chip_smoke as CSM
 
     torch.set_num_threads(4)
-    CSM.launch_counts = lambda: {k: 1 for k in CSM.KERNELS}
+    CSM.P.reset_launches = lambda: CSM.P.LAUNCHES.update(dict.fromkeys(CSM.KERNELS, 1))
     for size in args.size or ["90x60", "180x120"]:
         w, h = (int(v) for v in size.split("x"))
         print(f"[study] {w}x{h}: the backward keeps "

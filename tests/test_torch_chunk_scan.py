@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from paths_tpu.bvh.build import build_bvh
 from paths_tpu.ops import pallas_traverse as JP
 
+from paths_tpu_torch import native
 from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
@@ -373,25 +374,44 @@ def test_flat_split_emulation_equals_plain(stress_table, case, group, anyhit):
 
 
 def test_launch_checks_reject_bad_inputs(spheres, stress_table):
-    """The checks a CUDA launch runs first: device, dtype, shape,
-    contiguity, the chunk count, the table's alignment (K8's launch of K1's
-    walk: sphere_traverse's launch and tree checks) and row count (flat)."""
+    """The checks a CUDA launch runs first, all through native.check:
+    device, dtype, shape, contiguity and alignment of each tensor, the
+    lanes (native.check_rays), the chunk count and the tree (K8's launch of
+    K1's walk: sphere_traverse's checks) and the row count (flat)."""
     _, (ps, n, _) = _sphere_tables(spheres, CS.SPH_ROWS_PER_CHUNK)
     o, d, excl, t_init, excl_ent, _ = _torch(*spheres[1])
     seed = [("t_init", t_init, torch.float32)]
-    ST._check_launch(ps, n, o, d, excl, seed)  # well-formed: no raise
-    ST._check_nodes(ps, o.device)
+    native.check("o", o, torch.float32, (len(o), 3), o.device)  # well-formed: no raise
+    with pytest.raises(ValueError, match="o is on meta"):
+        native.check("o", o.to("meta"), torch.float32, (len(o), 3), o.device)
+    with pytest.raises(TypeError, match="o has dtype torch.float64"):
+        native.check("o", o.double(), torch.float32, (len(o), 3), o.device)
+    with pytest.raises(ValueError, match=r"o has shape \(\d+, 2\)"):
+        native.check("o", o[:, :2], torch.float32, (len(o), 3), o.device)
+    with pytest.raises(ValueError, match="o must be contiguous"):
+        native.check("o", o.t().contiguous().t(), torch.float32, (len(o), 3), o.device)
+    misaligned = torch.zeros(ps.tris.numel() + 1)[1:].view(-1, 128)
+    native.check("table", misaligned, torch.float32, misaligned.shape, o.device)
+    with pytest.raises(ValueError, match="table must be 16-byte aligned"):
+        native.check("table", misaligned, torch.float32, misaligned.shape, o.device,
+                     align16=True)
+    assert native.check_rays(o, d, excl, seed) == len(o)
+    with pytest.raises(TypeError, match="excl_idx"):
+        native.check_rays(o, d, excl.long(), seed)
+    with pytest.raises(ValueError, match="t_init"):
+        native.check_rays(o, d, excl, [("t_init", t_init[1:], torch.float32)])
+
+    assert ST._check_launch(ps, n, o, d, excl, seed) == len(o)  # well-formed
     with pytest.raises(TypeError):
         ST._check_launch(ps, n, o, d, excl.long(), seed)
     with pytest.raises(ValueError):
         ST._check_launch(ps, ps.chunk_meta.shape[0] + 1, o, d, excl, seed)
-    misaligned = ps._replace(tris=torch.zeros(ps.tris.numel() + 1)[1:].view(-1, 128))
     with pytest.raises(ValueError, match="aligned"):
-        ST._check_nodes(misaligned, o.device)
+        ST._check_launch(ps._replace(tris=misaligned), n, o, d, excl, seed)
 
     table = stress_table[0]
     ent = [("excl_ent", excl_ent, torch.int32)]
-    CS._check_flat(table, o, d, excl, seed)  # well-formed: no raise
+    assert CS._check_flat(table, o, d, excl, seed) == (table.shape[0], len(o))
     CS._check_flat(table, o, d, excl, ent + seed)
     with pytest.raises(ValueError, match="rows"):
         CS._check_flat(torch.zeros(72, 128), o, d, excl, seed)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from paths_tpu_torch import profiling as P
 from paths_tpu_torch.bvh.build import build_bvh
 from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import packet_traverse as PK
@@ -22,6 +23,12 @@ torch.set_num_threads(2)
 
 N = 4096
 S = 300
+
+
+def _added(before: dict) -> dict:
+    """The kernels profiling.LAUNCHES counted since it read `before`, by
+    key."""
+    return {k: v - before[k] for k, v in P.LAUNCHES.items() if v != before[k]}
 
 
 @pytest.fixture
@@ -56,10 +63,10 @@ def _scene_and_rays(dev, seed=0, rows=ST.SPH_ROWS_PER_CHUNK):
 @pytest.mark.cuda
 def test_closest_hit_kernel_matches_plain(dev):
     ps, nc, (o, d, excl, t_init, _, _) = _scene_and_rays(dev)
-    before = ST.LAUNCHES["sphere_closest_hit"]
+    before = P.LAUNCHES["sphere_closest_hit"]
     got = ST.closest_hit_spheres(ps, nc, o, d, excl, t_init)
     torch.cuda.synchronize()
-    assert ST.LAUNCHES["sphere_closest_hit"] == before + 1
+    assert P.LAUNCHES["sphere_closest_hit"] == before + 1
     want = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -150,10 +157,10 @@ def test_any_hit_kernel_holds_edge_lanes(dev, case):
     exact nearest occluder, t_max == 0 and dead lanes: equal to the plain
     version bit for bit."""
     ps, nc, (o, d, excl, excl_ent, t_max) = _sphere_case(dev, case)
-    before = ST.LAUNCHES["sphere_any_hit"]
+    before = P.LAUNCHES["sphere_any_hit"]
     got = ST.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
     torch.cuda.synchronize()
-    assert ST.LAUNCHES["sphere_any_hit"] == before + 1
+    assert P.LAUNCHES["sphere_any_hit"] == before + 1
     assert torch.equal(got, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
     dead = o[:, 0] > 1e29
     assert got[t_max == 0].all() and not got[dead & (t_max > 0)].any()
@@ -222,10 +229,10 @@ def _mesh_and_rays(dev, n_tris, seed=0, rows=None, bvh=False):
 @pytest.mark.parametrize("n_tris", [3000, 120000])  # 8 and 20 rows per chunk
 def test_tri_closest_hit_kernel_matches_plain(dev, n_tris):
     pt, nc, (o, d, excl, t_init, _, _) = _mesh_and_rays(dev, n_tris)
-    before = TT.LAUNCHES["tri_closest_hit"]
+    before = P.LAUNCHES["tri_closest_hit"]
     got = TT.closest_hit_tris(pt, nc, o, d, excl, t_init)
     torch.cuda.synchronize()
-    assert TT.LAUNCHES["tri_closest_hit"] == before + 1
+    assert P.LAUNCHES["tri_closest_hit"] == before + 1
     want = TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -291,7 +298,7 @@ def test_flat_kernel_matches_plain(dev, anyhit):
     ps, _, (o, d, excl, t_init, excl_ent, t_max) = _scene_and_rays(dev, seed=2)
     assert ps.tris.shape[0] <= CS.SPH_FLAT_MAX_ROWS
     name = "flat_sphere_any_hit" if anyhit else "flat_sphere_closest_hit"
-    before = CS.LAUNCHES[name]
+    before = P.LAUNCHES[name]
     if anyhit:
         got = CS.flat_occludes(ps.tris, o, d, excl, excl_ent, t_max)
         want = ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max)
@@ -299,7 +306,7 @@ def test_flat_kernel_matches_plain(dev, anyhit):
         got = CS.flat_closest_hit(ps.tris, o, d, excl, t_init)
         want = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)
     torch.cuda.synchronize()
-    assert CS.LAUNCHES[name] == before + 1
+    assert P.LAUNCHES[name] == before + 1
     if anyhit:
         got, want = (got,), (want,)
     for g, w in zip(got, want):
@@ -346,11 +353,10 @@ def test_scan_sphere_kernels_match_plain(dev):
     sphere_traverse's, although it launches K1's walk."""
     ps, nc, (o, d, excl, t_init, excl_ent, t_max) = _scene_and_rays(
         dev, seed=3, rows=CS.SPH_ROWS_PER_CHUNK)
-    before, walks = dict(CS.LAUNCHES), dict(ST.LAUNCHES)
+    before = dict(P.LAUNCHES)
     got = CS.closest_hit_spheres(ps, nc, o, d, excl, t_init)
     torch.cuda.synchronize()
-    assert CS.LAUNCHES["scan_sphere_closest_hit"] == before["scan_sphere_closest_hit"] + 1
-    assert ST.LAUNCHES == walks
+    assert _added(before) == {"scan_sphere_closest_hit": 1}
     for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
         assert torch.equal(g, w)
     occ = CS.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
@@ -380,10 +386,10 @@ def test_any_hit_environment_query_matches_plain(dev):
 def test_scan_tri_kernels_match_plain(dev, n_tris):
     pt, nc, (o, d, excl, t_init, excl_ent, t_max) = _mesh_and_rays(
         dev, n_tris, seed=4, rows=CS.TRI_ROWS_PER_CHUNK)
-    before = CS.LAUNCHES["scan_tri_closest_hit"]
+    before = P.LAUNCHES["scan_tri_closest_hit"]
     got = CS.closest_hit_chunked(pt, nc, o, d, excl, t_init)
     torch.cuda.synchronize()
-    assert CS.LAUNCHES["scan_tri_closest_hit"] == before + 1
+    assert P.LAUNCHES["scan_tri_closest_hit"] == before + 1
     for g, w in zip(got, TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)):
         assert torch.equal(g, w)
     occ = CS.occludes_chunked(pt, nc, o, d, excl, excl_ent, t_max)
@@ -442,7 +448,7 @@ def test_chunked_tri_walks_hold_exact_ties(dev, n):
     """K7 and K9's triangle form on the table of duplicated triangles whose
     ties are exact, packed at K7's 32 rows a chunk, at n lanes, with t_init
     and t_max at exact hit distances: equal to the plain versions bit for
-    bit, each launch counted once in chunk_scan.LAUNCHES and not as K3/K4."""
+    bit, each launch counted once under its scan key and not as K3/K4."""
     (flat, v0, v1, v2, nrm, ent), lanes = ties_case(CS.TRI_ROWS_PER_CHUNK, 13)
     pt, nc = TT.pack_chunked(flat, v0, v1, v2, nrm, ent=ent,
                              rows_per_chunk=CS.TRI_ROWS_PER_CHUNK)
@@ -451,16 +457,14 @@ def test_chunked_tri_walks_hold_exact_ties(dev, n):
         [torch.as_tensor(np.array(a), device=dev) for a in lanes], n)
     first = TT.closest_hit_tris_plain(pt, nc, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
     t_init, t_max = _exact_seeds(first, t_init, t_max)
-    before, walks = dict(CS.LAUNCHES), dict(TT.LAUNCHES)
+    before = dict(P.LAUNCHES)
     got = CS.closest_hit_chunked(pt, nc, o, d, excl, t_init)
     for g, w in zip(got, TT.closest_hit_tris_plain(pt, nc, o, d, excl, t_init)):
         assert torch.equal(g, w)
     occ = CS.occludes_chunked(pt, nc, o, d, excl, excl_ent, t_max)
     assert torch.equal(occ, TT.occludes_tris_plain(pt, nc, o, d, excl, excl_ent, t_max))
     torch.cuda.synchronize()
-    assert CS.LAUNCHES["scan_tri_closest_hit"] == before["scan_tri_closest_hit"] + 1
-    assert CS.LAUNCHES["scan_tri_any_hit"] == before["scan_tri_any_hit"] + 1
-    assert TT.LAUNCHES == walks
+    assert _added(before) == {"scan_tri_closest_hit": 1, "scan_tri_any_hit": 1}
     if n > 1000:
         assert int((got[0] < 3.4e38).sum()) > n // 4 and int(occ.sum()) > 0
 
@@ -472,7 +476,7 @@ def test_chunked_sphere_walk_holds_exact_ties(dev, n):
     at n lanes, with t_init and t_max at the exact nearest hit on some lanes
     and t_max 0 on others: equal to the plain versions bit for bit (K8's
     exact ties go to the first slot in table order), each launch counted
-    once in chunk_scan.LAUNCHES and not as K1/K2."""
+    once under its scan key and not as K1/K2."""
     (c, r, ent), lanes = sphere_ties_case()
     ps, nc, _ = ST.pack_spheres_chunked(c, r, ent=ent, rows_per_chunk=CS.SPH_ROWS_PER_CHUNK,
                                         device=dev)
@@ -480,16 +484,14 @@ def test_chunked_sphere_walk_holds_exact_ties(dev, n):
         [torch.as_tensor(np.array(a), device=dev) for a in lanes], n)
     first = ST.closest_hit_spheres_plain(ps.tris, o, d, excl, torch.full_like(t_init, 3.4e38))[0]
     t_init, t_max = _exact_seeds(first, t_init, t_max)
-    before, walks = dict(CS.LAUNCHES), dict(ST.LAUNCHES)
+    before = dict(P.LAUNCHES)
     got = CS.closest_hit_spheres(ps, nc, o, d, excl, t_init)
     for g, w in zip(got, ST.closest_hit_spheres_plain(ps.tris, o, d, excl, t_init)):
         assert torch.equal(g, w)
     occ = CS.occludes_spheres(ps, nc, o, d, excl, excl_ent, t_max)
     assert torch.equal(occ, ST.occludes_spheres_plain(ps.tris, o, d, excl, excl_ent, t_max))
     torch.cuda.synchronize()
-    assert CS.LAUNCHES["scan_sphere_closest_hit"] == before["scan_sphere_closest_hit"] + 1
-    assert CS.LAUNCHES["scan_sphere_any_hit"] == before["scan_sphere_any_hit"] + 1
-    assert ST.LAUNCHES == walks
+    assert _added(before) == {"scan_sphere_closest_hit": 1, "scan_sphere_any_hit": 1}
     if n > 1000:
         assert int(occ.sum()) > n // 8 and int((~occ).sum()) > n // 8
         assert int((got[0] < 3.4e38).sum()) > n // 8
@@ -542,7 +544,7 @@ def test_chunked_wrappers_refuse_a_table_without_hierarchy(dev):
     with it on another device, is refused, never scanned nor run plain."""
     pt, nc, (o, d, excl, t_init, excl_ent, t_max) = _mesh_and_rays(
         dev, 3000, rows=CS.TRI_ROWS_PER_CHUNK)
-    before = dict(CS.LAUNCHES)
+    before = dict(P.LAUNCHES)
     with pytest.raises(ValueError, match="hierarchy"):
         CS.closest_hit_chunked(pt._replace(nodes=None), nc, o, d, excl, t_init)
     with pytest.raises(ValueError, match="hierarchy"):
@@ -559,7 +561,7 @@ def test_chunked_wrappers_refuse_a_table_without_hierarchy(dev):
         CS.occludes_spheres(ps._replace(nodes=None), sc, o, d, excl, excl_ent, t_max)
     with pytest.raises(ValueError):
         CS.occludes_spheres(ps._replace(nodes=ps.nodes.cpu()), sc, o, d, excl, excl_ent, t_max)
-    assert CS.LAUNCHES == before
+    assert P.LAUNCHES == before
 
 
 # ---- K6 (the skip-link BVH walk) ----
@@ -569,10 +571,10 @@ def test_chunked_wrappers_refuse_a_table_without_hierarchy(dev):
 def test_packet_kernel_matches_plain(dev, n_tris):
     pt, _, (o, d, excl, t_init, _, _) = _mesh_and_rays(dev, n_tris, seed=5, bvh=True)
     d[:64, 0] = 0.0  # a zero direction component
-    before = PK.LAUNCHES["packet_closest_hit"]
+    before = P.LAUNCHES["packet_closest_hit"]
     got = PK.closest_hit_packet(pt, o, d, excl, t_init)
     torch.cuda.synchronize()
-    assert PK.LAUNCHES["packet_closest_hit"] == before + 1
+    assert P.LAUNCHES["packet_closest_hit"] == before + 1
     for g, w in zip(got, PK.closest_hit_packet_plain(pt, o, d, excl, t_init)):
         assert torch.equal(g, w)
     assert int((got[0] < 3.4e38).sum()) > N // 8
@@ -693,21 +695,20 @@ def test_lane_rng_counts_one_launch_a_draw(dev):
     from paths_tpu_torch import camera as C
     from paths_tpu_torch import integrator as I
     from paths_tpu_torch import render as R
-    from paths_tpu_torch.ops import lane_rng as RNG
     from paths_tpu_torch.scene.build import build_scene
     from paths_tpu_torch.scene.stress import generate_stress_scene
 
     (pix, sid), _ = _rng_keys(dev)
-    RNG.reset_launch_counts()
+    P.reset_launches()
     u = I.lane_uniforms(5, pix, sid)
     u(0, H.DIM_LOBE)
     u(torch.zeros_like(pix), H.DIM_RR)
-    assert RNG.LAUNCHES == {"rng_uniform": 2, "rng_camera": 0}
+    assert P.LAUNCHES["rng_uniform"] == 2 and sum(P.LAUNCHES.values()) == 2
     _, _, cam = build_scene(generate_stress_scene(8, seed=1), device=dev)
     cam = C.resize(cam, 64, 64)
     R.gen_camera_rays(cam, (pix % 64).to(torch.int32), (pix // 64 % 64).to(torch.int32),
                       pix, sid, 5)
-    assert RNG.LAUNCHES == {"rng_uniform": 2, "rng_camera": 1}
+    assert P.LAUNCHES["rng_camera"] == 1 and sum(P.LAUNCHES.values()) == 3
 
 
 @pytest.mark.cuda
@@ -754,12 +755,12 @@ def test_render_samples_with_the_lane_rng_kernel_equals_the_eager_hash(dev, monk
         SG.clear()  # the step's graphs are captured with the RNG of the moment
         return R.render_samples(static, scene, cam, px, py, pix, 14, 4, 7300000001)
 
-    RNG.reset_launch_counts()
+    P.reset_launches()
     kernel = render()
-    assert RNG.LAUNCHES["rng_uniform"] > 0 and RNG.LAUNCHES["rng_camera"] > 0
+    assert P.LAUNCHES["rng_uniform"] > 0 and P.LAUNCHES["rng_camera"] > 0
     monkeypatch.setattr(RNG, "shading_uniform", RNG.shading_uniform_plain)
     monkeypatch.setattr(RNG, "camera_cmj", RNG.camera_cmj_plain)
-    RNG.reset_launch_counts()
+    P.reset_launches()
     eager = render()
-    assert RNG.LAUNCHES == {"rng_uniform": 0, "rng_camera": 0}
+    assert P.LAUNCHES["rng_uniform"] == 0 and P.LAUNCHES["rng_camera"] == 0
     assert kernel.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()

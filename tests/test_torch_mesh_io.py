@@ -340,7 +340,7 @@ def test_failed_build_raises(tmp_path, monkeypatch, kind):
     def refuse(source, *a, **k):
         raise RuntimeError(f"building {source} failed (1)")
 
-    monkeypatch.setattr(native, "_mesh", None)
+    monkeypatch.setattr(native, "_libs", {})
     monkeypatch.setattr(native, "load_library", refuse)
     if kind == "ply":
         path, _, _ = _ply_case(tmp_path, PLY_CASES[0])

@@ -357,14 +357,17 @@ def test_any_hit_walk_emulation_equals_plain(which):
 def test_launch_checks_reject_a_bad_tree(packed):
     """The closest-hit kernel refuses a table without a tree and one of the
     wrong dtype, width or alignment."""
-    _, (tps, _, _) = packed
-    ST._check_nodes(tps, tps.tris.device)  # well-formed: no raise
+    _, (tps, tn, _) = packed
+    o, d, excl, t_init = (torch.from_numpy(a) for a in _rays())
+    seed = [("t_init", t_init, torch.float32)]
+    ST._check_launch(tps, tn, o, d, excl, seed)  # well-formed: no raise
     with pytest.raises(ValueError, match="tree"):
-        ST._check_nodes(tps._replace(nodes=None), tps.tris.device)
+        ST._check_launch(tps._replace(nodes=None), tn, o, d, excl, seed)
     with pytest.raises(TypeError):
-        ST._check_nodes(tps._replace(nodes=tps.nodes.double()), tps.tris.device)
+        ST._check_launch(tps._replace(nodes=tps.nodes.double()), tn, o, d, excl, seed)
     with pytest.raises(ValueError):
-        ST._check_nodes(tps._replace(nodes=tps.nodes[:, :6].contiguous()), tps.tris.device)
+        ST._check_launch(tps._replace(nodes=tps.nodes[:, :6].contiguous()), tn, o, d, excl,
+                         seed)
     misaligned = torch.zeros(tps.nodes.numel() + 1)[1:].view(-1, ST.NODE_FLOATS)
     with pytest.raises(ValueError, match="aligned"):
-        ST._check_nodes(tps._replace(nodes=misaligned), tps.tris.device)
+        ST._check_launch(tps._replace(nodes=misaligned), tn, o, d, excl, seed)

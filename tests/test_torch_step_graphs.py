@@ -13,8 +13,9 @@ counts.  On the card (marker ``cuda``; this file imports no JAX):
 
 the graphed render bit for bit the frozen eager one across seeds, sample
 starts, a camera set between calls and both of the progressive renderer's
-lane sets, within one cache entry, and the lane RNG's device-word seed
-against the plain hash and CMJ.
+lane sets, within one cache entry, the lane RNG's device-word seed
+against the plain hash and CMJ, and ``profiling.LAUNCHES`` counting the
+kernels that replays run.
 """
 
 import dataclasses
@@ -174,20 +175,23 @@ def test_graph_inputs_are_decided_from_the_inputs_alone():
     assert SG.entries() == 0
 
 
-def test_launch_log_holds_what_a_capture_launches():
-    """profiling.launched counts a launch; inside launch_log() it also logs
-    it, so that a graph's replays can count it again; nested logs restore
-    the outer one."""
-    counts = {"k": 0, "j": 0}
-    P.launched(counts, "k")
+def test_launch_log_holds_what_a_capture_launches(monkeypatch):
+    """profiling.launched counts a launch in profiling.LAUNCHES; inside
+    launch_log() it also logs its key, so that a graph's replays can count
+    it again; nested logs restore the outer one; reset_launches zeroes
+    every key."""
+    monkeypatch.setattr(P, "LAUNCHES", {"k": 0, "j": 0})
+    P.launched("k")
     with P.launch_log() as outer:
-        P.launched(counts, "k")
+        P.launched("k")
         with P.launch_log() as inner:
-            P.launched(counts, "j")
-        P.launched(counts, "j")
-    P.launched(counts, "k")
-    assert counts == {"k": 3, "j": 2}
-    assert inner == [(counts, "j")] and outer == [(counts, "k"), (counts, "j")]
+            P.launched("j")
+        P.launched("j")
+    P.launched("k")
+    assert P.LAUNCHES == {"k": 3, "j": 2}
+    assert inner == ["j"] and outer == ["k", "j"]
+    P.reset_launches()
+    assert P.LAUNCHES == {"k": 0, "j": 0}
 
 
 def _metric():
@@ -386,20 +390,57 @@ def test_graphed_render_after_eviction(dev, tmp_path):
 def test_lane_rng_launches_count_kernels_run_under_replay(dev, tmp_path, monkeypatch):
     """A render whose stretches all replay counts the lane RNG's launches
     the eager render makes: the replays add what the captures launched."""
-    from paths_tpu_torch.ops import lane_rng as RNG
-
     static, scene, cam = make_scene("spheres", str(tmp_path), dev)
     lanes_ = lanes(dev)
     SG.clear()
     R.render_samples(static, scene, cam, *lanes_, 0, 2, SEED)  # captures
-    RNG.reset_launch_counts()
+    P.reset_launches()
     with P.record() as rec:
         graphed = R.render_samples(static, scene, cam, *lanes_, 0, 2, SEED + 1)
-    replayed = dict(RNG.LAUNCHES)
+    replayed = dict(P.LAUNCHES)
     assert set(rec.counts) == {"step_graph_replays"}
     monkeypatch.setattr(SG, "run", lambda fn, consts, inputs, into=None:
                         SG.eager(fn(*consts, *inputs)))
-    RNG.reset_launch_counts()
+    P.reset_launches()
     eager = R.render_samples(static, scene, cam, *lanes_, 0, 2, SEED + 1)
-    assert replayed == RNG.LAUNCHES and min(replayed.values()) > 0
+    assert replayed == P.LAUNCHES
+    assert replayed["rng_uniform"] > 0 and replayed["rng_camera"] > 0
+    assert replayed["sphere_closest_hit"] > 0
     assert same(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_traversal_kernel_in_a_graph_counts_once_per_replay(dev, tmp_path):
+    """A traversal wrapper called inside a stretch is captured into its
+    graph: the warm-up and the capture count one launch each and every
+    replay one more (native.launch's profiling.launched under the
+    capture's launch_log), and the replayed answer is the eager call's."""
+    from paths_tpu_torch.ops import sphere_traverse as ST
+
+    static, scene, _ = make_scene("spheres", str(tmp_path), dev)
+    n = 256
+    g = torch.Generator().manual_seed(3)
+    u = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1).to(dev)
+    c = scene.sph_center[torch.arange(n, device=dev) % static.n_spheres]
+    o, d = (c + 30 * u).contiguous(), (-u).contiguous()
+    excl = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    t_init = torch.full((n,), ST.BIG, dtype=torch.float32, device=dev)
+
+    def query(ps, n_chunks, o, d, excl, t_init):
+        return ST.closest_hit_spheres(ps, n_chunks, o, d, excl, t_init)
+
+    gen = SG.single(query)
+    consts, inputs = (scene.psph, static.sph_chunks), (o, d, excl, t_init)
+    SG.clear()
+    P.reset_launches()
+    SG.run(gen, consts, inputs)
+    assert P.LAUNCHES["sphere_closest_hit"] == 2  # the warm-up and the capture
+    for k in range(3):
+        with P.record() as rec:
+            got = SG.run(gen, consts, inputs)
+        assert rec.counts == {"step_graph_replays": 1}
+        assert P.LAUNCHES["sphere_closest_hit"] == 3 + k
+    want = ST.closest_hit_spheres(scene.psph, static.sph_chunks, *inputs)
+    assert all(same(a, b) for a, b in zip(got, want))
+    assert int((want[0] < ST.BIG).sum()) > n // 2
+    assert sum(P.LAUNCHES.values()) == P.LAUNCHES["sphere_closest_hit"] == 6

@@ -216,14 +216,14 @@ def test_native_loads_counted(tmp_path, monkeypatch):
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the mesh parser")
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(native, "_mesh", None)
+    monkeypatch.setattr(native, "_libs", {})
     key = "mesh_io.cc"
     s0, b0 = P.NATIVE_LOAD_S.get(key, 0.0), P.NATIVE_BUILDS.get(key, 0)
-    native._mesh_lib()
+    native.library(key)
     s1, b1 = P.NATIVE_LOAD_S[key], P.NATIVE_BUILDS[key]
     assert b1 == b0 + 1 and s1 > s0
-    monkeypatch.setattr(native, "_mesh", None)
-    native._mesh_lib()
+    monkeypatch.setattr(native, "_libs", {})
+    native.library(key)
     assert P.NATIVE_BUILDS[key] == b1 and P.NATIVE_LOAD_S[key] > s1
 
 
