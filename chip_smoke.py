@@ -6,7 +6,8 @@
 Phases, one line each (any failure exits non-zero before the last line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels (csrc/sphere_traverse.cu, csrc/tri_traverse.cu,
-     csrc/flat_spheres.cu, csrc/packet_bvh.cu, csrc/lane_rng.cu; nvcc with
+     csrc/flat_spheres.cu, csrc/packet_bvh.cu, csrc/lane_rng.cu,
+     csrc/sphere_ds.cu; nvcc with
      ptxas -v, whose registers, stack frame, spills and shared memory are
      printed per kernel), the C++ BVH builder (csrc/bvh_builder.cc, g++),
      the C++ mesh parsers (csrc/mesh_io.cc) and the C++ CPU tracer
@@ -21,6 +22,16 @@ Phases, one line each (any failure exits non-zero before the last line):
      and timed as in 4, beside the byte bound (28, 20 and 32 B a lane over
      3.35 TB/s), on a main-path tile (65,536 lanes) and a 720x480 frame
      (345,600);
+  2d. the double-single sphere test (csrc/sphere_ds.cu): its three queries
+     (the closest hit over a range of spheres, the shadow test, the light's
+     entry distance in NEE) held bit for bit against their plain versions
+     on the inputs that a main-path tile's second bounce iteration gives
+     them (65,536 lanes, the step run eagerly), on doom_standin's table (the
+     ground and the sphere light) and on the environment cell's (the
+     ground with its low part: dragon_standin's mesh and floor under the
+     sunrise HDRI with env NEE, no light), and timed as in 4, beside the
+     larger of the lanes' bytes over 3.35 TB/s and 322 FP32 operations a
+     lane and sphere tested over the FP32 peak;
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
      card, at the stress-500 table and a full 720x480 frame of lanes
      (345,600): primary camera rays and incoherent rays (5% dead lanes, 20%
@@ -86,9 +97,10 @@ Phases, one line each (any failure exits non-zero before the last line):
      leaves' rows and the compact nodes a lane enters, read once);
   5. main path: each path driven with the launch counts set to 0 just before
      it and read just after, both lane RNG kernels launched on each: the CLI renders the 500-sphere stress scene at
-     720x480, 8 spp (K1); the lit stress scene renders at 720x480, 4 spp
+     720x480, 8 spp (K1; no double-single kernel: no big sphere, no light); the lit stress scene renders at 720x480, 4 spp
      (K1, K2); the CLI renders scenes/doom_standin.yml at 720x480, 4 spp and
-     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4), their meshes
+     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4; on doom the
+     double-single test's three kernels too), their meshes
      parsed by the C++ parser (the CLI's first line gives the scene build's
      seconds); then, with
      PATHS_TPU_SPH_FLAT=1, the CLI on stress-500 at 720x480, 8 spp (K5
@@ -96,8 +108,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      (both K5 forms), each image held to its walk-route counterpart (same
      seed) at relative MSE < 1e-4; then doom_standin (4 spp) and
      dragon_standin (2 spp) at 720x480 on the BVH route
-     (build_scene(..., bvh_threshold=32768), render_image): K6 launched,
-     K3/K4 not, each image compared with its kernel-route counterpart (same
+     (build_scene(..., bvh_threshold=32768), render_image): K6 launched
+     (on doom the double-single closest hit and light bound too, and no
+     any-hit: the shadow query takes the closest hit), K3/K4 not, each image compared with its kernel-route counterpart (same
      seed; relative MSE below BVH_VS_KERNEL_REL_MSE); then the HDRI sky
      with environment NEE: (a) the CLI on scenes/env_demo.yml --env-nee at
      720x480, 4 spp (three small spheres and the ground: no traversal
@@ -174,7 +187,8 @@ Phases, one line each (any failure exits non-zero before the last line):
   version, the images within relative MSE 1e-4.
 Then a JSON line of per-kernel results (launches summed over the paths of
 phases 5, 8 (a, b), 9 and 10 (a, b); ms, device_ms, plain_ms and bound_ms at the main
-path's tile for K1-K6 and the lane RNG, env_tile_* at configuration (b)'s for K1/K2; at the
+path's tile for K1-K6, the lane RNG and the double-single test (doom's table;
+env_* on the environment's), env_tile_* at configuration (b)'s for K1/K2; at the
 doom subset for K7 and K9's triangle form and
 at the incoherent stress-500 frame for K8 and K9's sphere form; frame_* and
 doom_*/dragon_* at the shapes of 2c, 4, 4b, 4d and 4e; the lane RNG's
@@ -211,7 +225,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # subtractions for pa, pb, pc; two n.(a x b) of three multiplies, three FMAs
 # and a dot product, 18; bx, by's multiplies, 2; bz's subtractions, 2; nine
 # comparisons).
-OPS_PER_PAIR = {"sphere": 25, "tri": 32, "vtri": 53}
+# A double-single sphere test (csrc/sphere_ds.cu, none of it an FMA): o - c
+# by two_sum and the low part, 24; b, 90; oc.oc, 93; r^2, 17; the
+# discriminant, 48; the root, 26; d1 and d2, 24: 322.
+OPS_PER_PAIR = {"sphere": 25, "tri": 32, "vtri": 53, "ds_sphere": 322}
 # FP32 operations of a sphere slot whose discriminant is negative, where the
 # flat kernel (K5) stops: 3 subtractions for o - c, b's multiply and two
 # FMAs, c2's multiply, two FMAs and subtraction, the discriminant's FMA and
@@ -287,14 +304,37 @@ KERNELS = {
     "rng_camera": dict(
         replaces="paths_tpu/sampling/cmj.py:50 (no kernel)",
         source="paths_tpu_torch/csrc/lane_rng.cu"),
+    "sphere_ds_closest": dict(
+        replaces="paths_tpu/geom/sphere.py:29 (no kernel)",
+        source="paths_tpu_torch/csrc/sphere_ds.cu"),
+    "sphere_ds_any_hit": dict(
+        replaces="paths_tpu/geom/sphere.py:29 (no kernel)",
+        source="paths_tpu_torch/csrc/sphere_ds.cu"),
+    "sphere_ds_intersect": dict(
+        replaces="paths_tpu/geom/sphere.py:29 (no kernel)",
+        source="paths_tpu_torch/csrc/sphere_ds.cu"),
 }
 # The lane RNG's kernels: every path that renders on the card draws.
 RNG_KERNELS = ["rng_uniform", "rng_camera"]
-TRAVERSAL_KERNELS = [k for k in KERNELS if k not in RNG_KERNELS]
+# The double-single sphere test's kernels, by the wrapper of ops/sphere_ds.py
+# that launches each: the big spheres' scan, their shadow test, the light's
+# bound in NEE.
+DS_KERNELS = {"closest": "sphere_ds_closest", "occludes": "sphere_ds_any_hit",
+              "intersect": "sphere_ds_intersect"}
+TRAVERSAL_KERNELS = [k for k in KERNELS
+                     if k not in RNG_KERNELS and k not in DS_KERNELS.values()]
 # Bytes a lane of the lane RNG's kernels moves: int64 pixel and sample ids
 # in, and an int64 bounce where it is per lane, an f32 out (a draw); the
 # two ids in and four f32 out (a camera sample).
 RNG_LANE_BYTES = {"lanes": 28, "scalar": 20, "camera": 32}
+# Bytes a lane of the double-single test's kernels moves: o and d (24), then
+# the query's own words: excl, excl_idx, t and index in, t and index out
+# (closest); excl, excl_idx, t_max, excl_ent and the flag in, the flag out
+# (any-hit); the lane's sphere centre and radius in, t and hit out (the
+# light's bound).  A sphere row is 32 (centre, low part, radius, entity).
+DS_LANE_BYTES = {"closest": 24 + 1 + 4 + 4 + 4 + 4 + 4,
+                 "occludes": 24 + 1 + 4 + 4 + 4 + 1 + 1, "intersect": 24 + 12 + 4 + 4 + 1}
+DS_ROW_BYTES = 32
 FLAT_ENV = "PATHS_TPU_SPH_FLAT"
 DOOM = os.path.join(REPO, "scenes", "doom_standin.yml")
 DRAGON = os.path.join(REPO, "scenes", "dragon_standin.yml")
@@ -710,6 +750,126 @@ def lane_rng_phase(device, width=720, height=480, seed=7300000001):
             recs[name].update({prefix + k: v for k, v in row.items()})
             if not prefix:
                 recs[name]["plain_lanes"] = lanes
+    return recs
+
+
+def environment_like_scene(device):
+    """The environment cell's sphere table and shape on this repo's assets:
+    dragon_standin's mesh and floor (radius 1e6 at y -1000002.8, a centre
+    float32 holds only with its low part), no light and no ceiling, under
+    scenes/assets/sunrise.hdr with environment NEE on."""
+    from paths_tpu_torch.scene import desc as D
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
+
+    sd = load_scene_description(DRAGON)
+    sd.objects = [ob for ob in sd.objects
+                  if ob.shape_kind != "sphere" or ob.sphere.center.y < 0]
+    sd.lights = []
+    sd.skybox = D.SkyboxD(kind="hdri", filename=SUNRISE)
+    static, scene, cam = build_scene(sd, device=device)
+    if not (static.n_spheres == 1 and static.sph_lo and static.n_lights == 0):
+        raise AssertionError("the environment-like scene's sphere table is not its floor")
+    return dataclasses.replace(static, env_nee=True), scene, cam
+
+
+class eager_step:
+    """Within it the shading step's stretches run eagerly on the card (no
+    CUDA graph captured or replayed), so that every bounce iteration calls
+    the wrappers inside them."""
+
+    def __enter__(self):
+        from paths_tpu_torch import step_graphs as SG
+
+        self.run = SG.run
+        SG.clear()
+        SG.run = lambda fn, consts, inputs, into=None: SG.eager(fn(*consts, *inputs))
+
+    def __exit__(self, *exc):
+        from paths_tpu_torch import step_graphs as SG
+
+        SG.run = self.run
+
+
+def sphere_ds_phase(device, width=720, height=480, lanes=SUBSET):
+    """Phase 2d: the double-single sphere test's kernels held bit for bit
+    against their plain versions (the eager test of geom/sphere.py) and
+    timed as 3/4 time the traversal kernels, on the inputs that the second
+    bounce iteration of a main-path tile (the first 65,536 lanes of the
+    tiled pixel order) gives each wrapper: on doom_standin's table (the
+    ground and the sphere light; all three queries) and on the environment
+    cell's (environment_like_scene: the floor alone; the closest hit and the
+    environment NEE's shadow test).  Bounded by the larger of the lanes'
+    bytes and the tables' over the HBM rate, and 322 FP32 operations a
+    lane and sphere tested (a shadow lane up to its first occluder) over
+    the FP32 peak.  Returns {kernel: record}: doom's numbers under the
+    names of the traversal kernels' records, the environment's prefixed
+    env_."""
+    import numpy as np
+    import torch
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch.ops import sphere_ds as SD
+    from paths_tpu_torch.render import render_samples, tiled_pixel_order
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.yaml_loader import load_scene_description
+
+    peak, _ = fp32_peak(device)
+    pix = torch.as_tensor(tiled_pixel_order(width, height)[:lanes].astype(np.int64),
+                          device=device)
+    px, py = (pix % width).to(torch.int32), (pix // width).to(torch.int32)
+    recs = {}
+    for table, make, queries in (
+            ("doom", lambda: build_scene(load_scene_description(DOOM), device=device),
+             ("closest", "occludes", "intersect")),
+            ("environment", lambda: environment_like_scene(device), ("closest", "occludes"))):
+        static, scene, cam = make()
+        cam = C.resize(cam, width, height)
+        with eager_step():
+            cap = capture_inputs(
+                lambda: render_samples(static, scene, cam, px, py, pix, 0, 1, 0), SD,
+                queries, [1] * len(queries))
+        if set(cap) != set(queries):
+            raise AssertionError(f"{table}: double-single calls captured: {sorted(cap)}")
+        for q in queries:
+            name, args = DS_KERNELS[q], cap[q]
+            kernel, plain = getattr(SD, q), getattr(SD, f"{q}_plain")
+            before = dict(P.LAUNCHES)
+            got = kernel(*args)
+            added = {k: v - before[k] for k, v in P.LAUNCHES.items() if v != before[k]}
+            if added != {name: 1}:
+                raise AssertionError(f"{name} on {table}'s tile launched {added}")
+            err = check_equal(f"{name} on {table}'s tile", got, plain(*args))
+            n = args[0].shape[0]
+            if q == "intersect":
+                spheres, pairs, rows = 1, n, 0
+            elif q == "closest":  # spheres [lo, hi) for every lane
+                spheres = args[6] - args[5]
+                pairs, rows = n * spheres, args[2].shape[0]
+            else:  # spheres [0, n_spheres), a lane up to its first occluder
+                center, radius, lo_part, ent, spheres = args[2:7]
+                tested = torch.zeros(n, dtype=torch.int64, device=device)
+                done = args[-1]
+                for k in range(spheres):
+                    tested += (~done).long()
+                    done = SD.occludes_plain(args[0], args[1], center, radius, lo_part, ent,
+                                             k + 1, *args[7:])
+                pairs, rows = int(tested.sum().item()), radius.shape[0]
+            bound_ms, bound_by = bound_record("ds_sphere", n, DS_LANE_BYTES[q], pairs,
+                                              rows * DS_ROW_BYTES, peak)
+            row = dict(ms=time_ms(lambda: kernel(*args)),
+                       device_ms=time_device_ms(lambda: kernel(*args)),
+                       plain_ms=time_ms(lambda: plain(*args)), plain_lanes=n,
+                       bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                       spheres=spheres, lanes=n)
+            log(f"[ds] {name} == plain on {table}'s tile ({n} lanes, {spheres} "
+                f"sphere{'s' if spheres != 1 else ''}, {pairs} tests); kernel "
+                f"{row['ms']:.4f} ms a call, {row['device_ms'] * 1e3:.3f} us device "
+                f"({100 * bound_ms / row['device_ms']:.1f}% of its bound "
+                f"{bound_ms * 1e3:.3f} us, by {bound_by}); the plain version "
+                f"{row['plain_ms']:.4f} ms a call")
+            prefix = "" if table == "doom" else "env_"
+            recs.setdefault(name, {}).update({prefix + k: v for k, v in row.items()})
     return recs
 
 
@@ -1462,14 +1622,19 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
         return img
 
     walk = ["sphere_closest_hit", "sphere_any_hit"]
+    # Doom's ground and sphere light take the double-single test's three
+    # queries on the kernel route; on the BVH route its shadow query takes
+    # the closest hit, so the closest-hit kernel twice an iteration and no
+    # any-hit.  Stress-500 has no big sphere and no light, so none.
+    ds = list(DS_KERNELS.values())
     runs = [
         drive("stress-500", lambda: timed_cli(
             "stress-500", cli_args("stress.png", spp[0]), spp[0]),
-            ["sphere_closest_hit"]),
+            ["sphere_closest_hit"], absent=ds),
         drive("lit stress-500", lambda: lit("lit stress-500"), walk),
         drive("doom_standin", lambda: timed_cli(
             "doom_standin", [DOOM] + cli_args("doom.png", spp[2]), spp[2]),
-            ["tri_closest_hit", "tri_any_hit"]),
+            ["tri_closest_hit", "tri_any_hit", *ds]),
         drive("dragon_standin", lambda: timed_cli(
             "dragon_standin", [DRAGON] + cli_args("dragon.png", spp[3]), spp[3]),
             ["tri_closest_hit", "tri_any_hit"]),
@@ -1485,7 +1650,9 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     tri = ["tri_closest_hit", "tri_any_hit"]
     runs += [
         drive("doom_standin BVH route", lambda: bvh_route(
-            "doom_standin BVH route", DOOM, spp[2]), ["packet_closest_hit"], absent=tri),
+            "doom_standin BVH route", DOOM, spp[2]),
+            ["packet_closest_hit", "sphere_ds_closest", "sphere_ds_intersect"],
+            absent=[*tri, "sphere_ds_any_hit"]),
         drive("dragon_standin BVH route", lambda: bvh_route(
             "dragon_standin BVH route", DRAGON, spp[3]), ["packet_closest_hit"],
             absent=tri),
@@ -2625,6 +2792,10 @@ def main() -> int:
     t = time.time()
     rng = lane_rng_phase(device)
     log(f"[main] phase 2c in {time.time() - t:.1f} s")
+    t = time.time()
+    ds = sphere_ds_phase(device)
+    log(f"[main] phase 2d in {time.time() - t:.1f} s")
+    own = {**rng, **ds}  # the shading step's kernels, held and timed alone
 
     t = time.time()
     frame = sphere_kernel_phases(device)
@@ -2725,17 +2896,19 @@ def main() -> int:
     # PLAIN_EVERY-th of its SUBSET lanes; every other: all of them).
     # The lane RNG's kernels: ms, device_ms, plain_ms (the eager hash and
     # CMJ on the same card tensors) and bound_ms at a main-path tile,
-    # frame_* at a frame, scalar_* with a scalar bounce (phase 2c).
+    # frame_* at a frame, scalar_* with a scalar bounce (phase 2c); the
+    # double-single test's at doom's main-path tile, env_* at the
+    # environment's (phase 2d).
     recs = []
     for name in KERNELS:
-        at = rng.get(name) or tile.get(name) or (
+        at = own.get(name) or tile.get(name) or (
             mesh["doom"] if name.startswith("scan_tri") else frame)[name]
         base = ("max_abs_err", "ms", "device_ms", "plain_ms", "plain_lanes", "bound_ms",
                 "bound_by")
         r = dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
                  **{k: at[k] for k in base}, library_ms=None)
-        if name in rng:
-            r.update({k: v for k, v in rng[name].items() if k not in base})
+        if name in own:
+            r.update({k: v for k, v in own[name].items() if k not in base})
         if name in tile:
             r.update({f"tile_{k}": v for k, v in tile[name].items() if k not in base})
         if name in frame:

@@ -27,8 +27,9 @@ to the traversal kernels (``ops/sphere_traverse.py``,
 ``ops/tri_traverse.py``; the small spheres to the flat kernel of
 ``ops/chunk_scan.py`` when the build chose it) when the scene packed them;
 big and far spheres, and scenes with at most 32 small spheres, take the
-double-single test in
-``geom/sphere.py``.  Meshes on the BVH route take K6
+double-single test of ``geom/sphere.py``, and so does NEE's entry distance
+into a sphere light: on the card one launch of ``ops/sphere_ds.py``'s kernel
+a query.  Meshes on the BVH route take K6
 (``ops/packet_traverse.py``: the kernel on the card, its plain version on
 the CPU).  Meshes on neither route (by default, those of at most 64
 triangles) take an unrolled scan of ``geom/triangle.py``.
@@ -51,6 +52,7 @@ from paths_tpu_torch.math import vec
 from paths_tpu_torch.ops import chunk_scan as CS
 from paths_tpu_torch.ops import lane_rng as RNG
 from paths_tpu_torch.ops import packet_traverse as PK
+from paths_tpu_torch.ops import sphere_ds as SD
 from paths_tpu_torch.ops import sphere_traverse as ST
 from paths_tpu_torch.ops import tri_traverse as TT
 from paths_tpu_torch.sampling import hashing as H
@@ -67,32 +69,16 @@ KIND_NONE = 0
 KIND_SPHERE = 1
 KIND_TRI = 2
 
-# Spheres per step of the double-single scan (bounds (lanes, spheres) temps).
-_SPH_STEP = 64
-
 
 def _scan_spheres(static: SceneStatic, scene: SceneArrays, lo: int, hi: int, o, d,
                   excl_kind, excl_idx, t_best, i_best):
     """Closest hit among spheres [lo, hi) by the double-single test, merged
     into (t_best, i_best): a sphere wins where its t is strictly below the
     running best, the lowest index among equal t (the reference's unrolled
-    per-sphere loop)."""
-    excl = excl_kind == KIND_SPHERE
-    for a in range(lo, hi, _SPH_STEP):
-        b = min(a + _SPH_STEP, hi)
-        t, hit = GS.intersect(o[:, None, :], d[:, None, :],
-                              scene.sph_center[None, a:b],
-                              scene.sph_radius[None, a:b],
-                              scene.sph_center_lo[None, a:b] if static.sph_lo else None)
-        ids = torch.arange(a, b, dtype=torch.int32, device=o.device)
-        ok = hit & ~(excl[:, None] & (excl_idx[:, None] == ids[None, :]))
-        t = torch.where(ok, t, BIG)
-        arg = torch.argmin(t, dim=1)
-        tmin = torch.gather(t, 1, arg[:, None])[:, 0]
-        better = tmin < t_best
-        t_best = torch.where(better, tmin, t_best)
-        i_best = torch.where(better, arg.to(torch.int32) + a, i_best)
-    return t_best, i_best
+    per-sphere loop; ``ops/sphere_ds.closest``)."""
+    return SD.closest(o, d, scene.sph_center, scene.sph_radius,
+                      scene.sph_center_lo if static.sph_lo else None, lo, hi,
+                      excl_kind == KIND_SPHERE, excl_idx, t_best, i_best)
 
 
 def _closest_spheres(static: SceneStatic, scene: SceneArrays, o, d,
@@ -228,11 +214,9 @@ def _occluded_query(static, scene, o, d, excl_kind, excl_idx, t_max, excl_ent):
     if static.has_spheres:
         excl_s = excl_kind == KIND_SPHERE
         n_scan = static.n_sph_big if static.sph_chunks else static.n_spheres
-        for s in range(n_scan):
-            t, hit = GS.intersect(o, d, scene.sph_center[s], scene.sph_radius[s],
-                                  scene.sph_center_lo[s] if static.sph_lo else None)
-            occ = occ | (hit & (t < t_max) & ~(excl_s & (excl_idx == s))
-                         & (scene.sph_ent[s] != excl_ent))
+        occ = SD.occludes(o, d, scene.sph_center, scene.sph_radius,
+                          scene.sph_center_lo if static.sph_lo else None, scene.sph_ent,
+                          n_scan, excl_s, excl_idx, t_max, excl_ent, occ)
         if static.sph_chunks:
             excl_i = torch.where(excl_s, excl_idx, -1).to(torch.int32)
             o_eff = torch.where(occ[:, None], DEAD_ORIGIN, o).contiguous()
@@ -479,7 +463,7 @@ def _path_step(static: SceneStatic, scene: SceneArrays, bounce, state, u):
         is_point = light["ltype"] == LT.POINT
         # Bound the query at the light itself: its analytic entry distance
         # (sphere lights) or the point light's distance.
-        t_light, l_hit = GS.intersect(shadow_o, shadow_dir, light["position"],
+        t_light, l_hit = SD.intersect(shadow_o, shadow_dir, light["position"],
                                       light["radius"])
         t_max_q = torch.where(is_point, max_dist,
                               torch.where(l_hit, t_light, BIG))

@@ -127,6 +127,18 @@ LIBRARIES = {
         # seed, seed word, pixel, sample, m, n_pat, square_tag, disk_tag, n, out, stream
         "lane_camera_cmj": Entry(_i, [_u32, _p, _p, _p, _u32, _u32, _u32, _u32, _i, _p, _p],
                                  ("rng_camera",))}),
+    "sphere_ds.cu": Library(nvcc, NVCC_FLAGS, {
+        # center, center_lo, radius, lo, hi, o, d, excl, excl_idx, t_in, i_in, n,
+        # t_out, i_out, stream
+        "sphere_ds_closest": Entry(_i, [_p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _i,
+                                        _p, _p, _p], ("sphere_ds_closest",)),
+        # center, center_lo, radius, ent, n_spheres, o, d, excl, excl_idx, t_max,
+        # excl_ent, occ_in, n, occ_out, stream
+        "sphere_ds_any_hit": Entry(_i, [_p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p,
+                                        _i, _p, _p], ("sphere_ds_any_hit",)),
+        # o, d, center, radius, n, t, hit, stream
+        "sphere_ds_intersect": Entry(_i, [_p, _p, _p, _p, _i, _p, _p, _p],
+                                     ("sphere_ds_intersect",))}),
     "bvh_builder.cc": Library(cxx, CXX_FLAGS, {
         # tri_min, tri_max, n, leaf_size, node_min, node_max, hit, miss, start,
         # count, order, n_nodes, depth

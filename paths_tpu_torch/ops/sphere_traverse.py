@@ -38,10 +38,10 @@ version would otherwise differentiate t through o and d.  This is the
 counterpart of the reference launchers' ``stop_gradient``
 (``sorted_traverse.py:687-692``, ``pallas_traverse.py:788-790``,
 ``:931-933``, ``:1058``).  The integrator recomputes shading
-differentiably at the returned hit, and its eager double-single scans
-(``integrator._scan_spheres``, ``_scan_tris``, ``geom/sphere.intersect`` in
-``occluded_query`` and ``_closest_spheres``) stay differentiable, as the
-reference's XLA scans are (``grad.py``).
+differentiably at the returned hit, and its scans (the double-single
+spheres of ``ops/sphere_ds.py``, whose closest hit's t is recomputed
+differentiably at the chosen sphere, and ``integrator._scan_tris``) stay
+differentiable, as the reference's XLA scans are (``grad.py``).
 """
 
 from __future__ import annotations

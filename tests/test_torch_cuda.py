@@ -764,3 +764,326 @@ def test_render_samples_with_the_lane_rng_kernel_equals_the_eager_hash(dev, monk
     eager = render()
     assert P.LAUNCHES["rng_uniform"] == 0 and P.LAUNCHES["rng_camera"] == 0
     assert kernel.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()
+
+
+# ---------------------------------------------------------------------------
+# The double-single sphere test (ops/sphere_ds.py, csrc/sphere_ds.cu): one
+# launch a query, the eager test's t, hits, indices and flags bit for bit,
+# on random, dead (NaN discriminant), inside and grazing lanes, with and
+# without the centres' low parts, ties between two equal spheres, excluded
+# spheres and entities (sphere_ds_cases.py).
+
+DS_KEYS = ("sphere_ds_closest", "sphere_ds_any_hit", "sphere_ds_intersect")
+DS_W, DS_H = 48, 32  # the doom-like tile
+
+
+def _ds_case(dev, n, with_lo=True, seed=0):
+    from sphere_ds_cases import make_case
+
+    return make_case(n, n_lanes=N, seed=seed, with_lo=with_lo).to(dev)
+
+
+def _ds_added(before):
+    return {k: v for k, v in _added(before).items() if k in DS_KEYS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lo", [True, False])
+@pytest.mark.parametrize("n", [1, 2, 7, 32])
+def test_sphere_ds_closest_kernel_matches_plain(dev, n, with_lo):
+    from paths_tpu_torch.ops import sphere_ds as SD
+    from sphere_ds_cases import same
+
+    c = _ds_case(dev, n, with_lo, seed=n)
+    for lo, hi in sorted({(0, n), (min(1, n), n), (n // 2, n)}):
+        args = (c.o, c.d, c.center, c.radius, c.center_lo, lo, hi, c.excl, c.excl_idx,
+                c.t_best, c.i_best)
+        before = dict(P.LAUNCHES)
+        got = SD.closest(*args)
+        assert _ds_added(before) == ({"sphere_ds_closest": 1} if hi > lo else {})
+        want = SD.closest_plain(*args)
+        assert same(got[0], want[0]), f"t differs on {int((got[0] != want[0]).sum())} lanes"
+        assert same(got[1], want[1]), f"index differs on {int((got[1] != want[1]).sum())} lanes"
+        assert 0 < int((want[0] < SD.BIG).sum()) < N
+        if n >= 3 and lo == 0:  # sphere 2 is sphere 1: the tie keeps the lower index
+            scanned = want[0] != c.t_best
+            assert int((scanned & (want[1] == 1)).sum()) > 0
+            assert not bool((scanned & (want[1] == 2) & ~(c.excl & (c.excl_idx == 1))).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lo", [True, False])
+@pytest.mark.parametrize("n", [1, 2, 7, 32])
+def test_sphere_ds_any_hit_kernel_matches_plain(dev, n, with_lo):
+    from paths_tpu_torch.ops import sphere_ds as SD
+    from sphere_ds_cases import same
+
+    c = _ds_case(dev, n, with_lo, seed=100 + n)
+    for n_scan in sorted({1, n}):
+        args = (c.o, c.d, c.center, c.radius, c.center_lo, c.ent, n_scan, c.excl,
+                c.excl_idx, c.t_max, c.excl_ent, c.occ)
+        before = dict(P.LAUNCHES)
+        got = SD.occludes(*args)
+        assert _ds_added(before) == {"sphere_ds_any_hit": 1}
+        want = SD.occludes_plain(*args)
+        assert same(got, want), f"{int((got != want).sum())} lanes differ"
+        assert int((want & ~c.occ).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sphere_ds_intersect_kernel_matches_plain(dev):
+    from paths_tpu_torch.ops import sphere_ds as SD
+    from sphere_ds_cases import same
+
+    for seed, n in ((0, 7), (1, 32), (2, 1)):
+        c = _ds_case(dev, n, seed=seed)
+        before = dict(P.LAUNCHES)
+        got = SD.intersect(c.o, c.d, c.lane_center, c.lane_radius)
+        assert _ds_added(before) == {"sphere_ds_intersect": 1}
+        want = SD.intersect_plain(c.o, c.d, c.lane_center, c.lane_radius)
+        assert same(got[0], want[0]) and same(got[1], want[1])
+        assert 0 < int(want[1].sum()) < N
+
+
+@pytest.mark.cuda
+def test_sphere_ds_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from paths_tpu_torch.ops import sphere_ds as SD
+
+    c = _ds_case(dev, 7)
+    with pytest.raises(TypeError):
+        SD.closest(c.o, c.d, c.center, c.radius, c.center_lo, 0, 7, c.excl,
+                   c.excl_idx.long(), c.t_best, c.i_best)
+    with pytest.raises(ValueError):
+        SD.closest(c.o, c.d, c.center.cpu(), c.radius, c.center_lo, 0, 7, c.excl,
+                   c.excl_idx, c.t_best, c.i_best)
+    with pytest.raises(ValueError):
+        SD.occludes(c.o, c.d, c.center, c.radius, c.center_lo, c.ent, 8, c.excl,
+                    c.excl_idx, c.t_max, c.excl_ent, c.occ)
+    with pytest.raises(ValueError):
+        SD.intersect(c.o, c.d, c.lane_center[:-1], c.lane_radius)
+
+
+@pytest.mark.cuda
+def test_sphere_ds_kernels_in_a_cuda_graph_replay_new_lanes(dev):
+    """The three launches captured into one CUDA graph and replayed with new
+    lane values: each replay equal to eager kernel calls and to the plain
+    versions on the same lanes."""
+    from paths_tpu_torch.ops import sphere_ds as SD
+    from sphere_ds_cases import same
+
+    c = _ds_case(dev, 7, seed=5)
+
+    def lanes_of(k):
+        return [x.roll(211 * k, 0).contiguous() for x in (
+            c.o, c.d, c.excl, c.excl_idx, c.t_best, c.i_best, c.t_max, c.excl_ent, c.occ,
+            c.lane_center, c.lane_radius)]
+
+    def calls(o, d, excl, excl_idx, t_best, i_best, t_max, excl_ent, occ, lc, lr, plain=False):
+        f = (SD.closest_plain, SD.occludes_plain, SD.intersect_plain) if plain else (
+            SD.closest, SD.occludes, SD.intersect)
+        return (*f[0](o, d, c.center, c.radius, c.center_lo, 0, 7, excl, excl_idx, t_best,
+                      i_best),
+                f[1](o, d, c.center, c.radius, c.center_lo, c.ent, 7, excl, excl_idx, t_max,
+                     excl_ent, occ),
+                *f[2](o, d, lc, lr))
+
+    static = lanes_of(0)
+    calls(*static)  # builds and binds the library outside the capture
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = calls(*static)
+    for k in (1, 2, 3):
+        new = lanes_of(k)
+        for s, x in zip(static, new):
+            s.copy_(x)
+        before = dict(P.LAUNCHES)
+        g.replay()
+        assert _ds_added(before) == {}  # a bare graph's replay is not counted here
+        eager = calls(*new)
+        plain = calls(*new, plain=True)
+        for name, a, b, p in zip(("t", "index", "occluded", "light t", "light hit"),
+                                 out, eager, plain):
+            assert same(a, b) and same(a, p), f"replay {k}: {name} differs"
+
+
+def _doom_like(dev, asset_dir, hdri=False):
+    """The mixed scene (a 128-triangle mesh, three spheres and a sphere
+    light) on a radius-1e6 ground whose float64 centre has a low part, as
+    doom's; with hdri, the environment cell's shape instead: the HDRI sky
+    with environment NEE and no light."""
+    import dataclasses
+    import os
+
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch.scene import desc as D
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_mixed_scene
+
+    sd = generate_mixed_scene(asset_dir, n_spheres=3)
+    sd.objects.append(D.ObjectD(
+        shape_kind="sphere",
+        sphere=D.SphereD(center=D.Vec3D(0.0, -1000002.8, 0.0), radius=1e6),
+        material=D.MaterialD(kind="lambertian",
+                             albedo=D.MaterialColourD(colour=D.ColourD(0.5, 0.5, 0.5)))))
+    if hdri:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        sd.skybox = D.SkyboxD(kind="hdri",
+                              filename=os.path.join(repo, "scenes", "assets", "sunrise.hdr"))
+        sd.lights = []
+    static, scene, cam = build_scene(sd, device=dev)
+    if hdri:
+        static = dataclasses.replace(static, env_nee=True)
+    assert static.tri_chunks > 0 and static.sph_chunks == 0 and static.sph_lo
+    assert static.n_lights == (0 if hdri else 1)
+    return static, scene, C.resize(cam, DS_W, DS_H)
+
+
+@pytest.mark.cuda
+def test_render_samples_with_the_sphere_ds_kernel_equals_the_eager_test(dev, monkeypatch,
+                                                                        tmp_path):
+    """A doom-like tile's accumulated radiance at a fixed seed, byte for
+    byte the same with the kernel as with the eager double-single test on
+    the card."""
+    from paths_tpu_torch import render as R
+    from paths_tpu_torch import step_graphs as SG
+    from paths_tpu_torch.ops import sphere_ds as SD
+
+    static, scene, cam = _doom_like(dev, str(tmp_path))
+    w, h = DS_W, DS_H
+    pix = torch.as_tensor(R.tiled_pixel_order(w, h).astype(np.int64), device=dev)
+    px, py = (pix % w).to(torch.int32), (pix // w).to(torch.int32)
+
+    def render():
+        SG.clear()  # the step's graphs are captured with the test of the moment
+        return R.render_samples(static, scene, cam, px, py, pix, 3, 4, 7300000001)
+
+    before = dict(P.LAUNCHES)
+    kernel = render()
+    assert set(_ds_added(before)) == set(DS_KEYS)
+    for name in ("closest", "occludes", "intersect"):
+        monkeypatch.setattr(SD, name, getattr(SD, f"{name}_plain"))
+    before = dict(P.LAUNCHES)
+    eager = render()
+    assert _ds_added(before) == {}
+    assert float(kernel.max()) > 0
+    assert kernel.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["doom_like", "environment_like", "stress"])
+def test_sphere_ds_launches_of_one_iteration(dev, tmp_path, kind):
+    """One bounce iteration launches the closest-hit kernel once, the any-hit
+    kernel once a shadow query over the scanned spheres and the per-lane
+    kernel once for the light, eagerly and under replay; a scene with no
+    big sphere and no light launches none."""
+    from paths_tpu_torch import camera as C
+    from paths_tpu_torch import integrator as I
+    from paths_tpu_torch import render as R
+    from paths_tpu_torch import step_graphs as SG
+    from paths_tpu_torch.ops import lane_rng as RNG
+    from paths_tpu_torch.scene.build import build_scene
+    from paths_tpu_torch.scene.stress import generate_stress_scene
+
+    if kind == "stress":
+        static, scene, cam = build_scene(generate_stress_scene(40, seed=2), device=dev)
+        cam = C.resize(cam, DS_W, DS_H)
+        want = {}
+    else:
+        static, scene, cam = _doom_like(dev, str(tmp_path), hdri=kind == "environment_like")
+        want = ({"sphere_ds_closest": 1, "sphere_ds_any_hit": 1, "sphere_ds_intersect": 1}
+                if kind == "doom_like" else {"sphere_ds_closest": 1, "sphere_ds_any_hit": 1})
+    w, h = DS_W, DS_H
+    pix = torch.arange(w * h, device=dev)
+    sid = torch.zeros_like(pix)
+    o, d, _ = R.gen_camera_rays(cam, (pix % w).to(torch.int32), (pix // w).to(torch.int32),
+                                pix, sid, 11)
+    state = I.fresh_path_state(o, d)
+    plain_u = lambda bounce, dim: RNG.shading_uniform(11, pix, sid, bounce, dim)
+    before = dict(P.LAUNCHES)
+    I.path_step(static, scene, 0, state, plain_u)  # eager
+    assert _ds_added(before) == want
+    seed = torch.full((), 11, dtype=torch.int64, device=dev)
+    u = I.lane_uniforms(seed, pix, sid)
+    bounce = torch.zeros_like(pix)
+    SG.clear()
+    I.path_step(static, scene, bounce, state, u)  # the warm-up and the capture
+    before = dict(P.LAUNCHES)
+    I.path_step(static, scene, bounce, state, u)  # a replay
+    assert _ds_added(before) == want
+
+
+@pytest.mark.cuda
+def test_sphere_ds_under_grad_launches_every_query(dev):
+    """With inputs that require grad every query launches its kernel.  The
+    closest hit's t is then recomputed at the chosen sphere, counted as
+    sphere_ds_eager: bit for bit the no-grad kernel's t, with the plain
+    scan's gradient.  The shadow test and the light's bound are uncounted
+    and carry no gradient."""
+    from paths_tpu_torch.ops import sphere_ds as SD
+    from sphere_ds_cases import same
+
+    c = _ds_case(dev, 7, seed=9)
+    with torch.no_grad():
+        t_k, i_k = SD.closest(c.o, c.d, c.center, c.radius, c.center_lo, 0, 7, c.excl,
+                              c.excl_idx, c.t_best, c.i_best)
+    leaves = [x.clone().requires_grad_() for x in (c.o, c.d, c.center)]
+    before = dict(P.LAUNCHES)
+    with P.record() as rec:
+        t, i = SD.closest(*leaves[:2], leaves[2], c.radius, c.center_lo, 0, 7, c.excl,
+                          c.excl_idx, c.t_best, c.i_best)
+        occ = SD.occludes(*leaves, c.radius, c.center_lo, c.ent, 7, c.excl, c.excl_idx,
+                          c.t_max, c.excl_ent, c.occ)
+        tl, hl = SD.intersect(*leaves[:2], c.lane_center, c.lane_radius)
+    assert _ds_added(before) == dict.fromkeys(DS_KEYS, 1)
+    assert rec.counts == {"sphere_ds_eager": 1}
+    assert same(t.detach(), t_k) and same(i, i_k) and t.requires_grad
+    assert not tl.requires_grad
+    assert same(occ, SD.occludes_plain(c.o, c.d, c.center, c.radius, c.center_lo, c.ent, 7,
+                                       c.excl, c.excl_idx, c.t_max, c.excl_ent, c.occ))
+    want = SD.intersect_plain(c.o, c.d, c.lane_center, c.lane_radius)
+    assert same(tl, want[0]) and same(hl, want[1])
+    grads = torch.autograd.grad(torch.where(t < SD.BIG, t, 0.0).sum(), leaves)
+    plain = [x.clone().requires_grad_() for x in (c.o, c.d, c.center)]
+    t_p, _ = SD.closest_plain(*plain[:2], plain[2], c.radius, c.center_lo, 0, 7, c.excl,
+                              c.excl_idx, c.t_best, c.i_best)
+    grads_p = torch.autograd.grad(torch.where(t_p < SD.BIG, t_p, 0.0).sum(), plain)
+    for g, g_p in zip(grads, grads_p):
+        torch.testing.assert_close(g, g_p, rtol=1e-6, atol=1e-6 * float(g_p.abs().max()))
+        assert float(g.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sphere_ds_kernels_keep_a_doom_like_gradient(dev, monkeypatch, tmp_path):
+    """loss_and_grad on a doom-like tile: the same loss, bit for bit, and
+    the same gradients with the kernels as with the eager double-single test
+    on the card (up to the order in which a parameter's lanes are summed)."""
+    from paths_tpu_torch import grad as G
+    from paths_tpu_torch import render as R
+    from paths_tpu_torch.ops import sphere_ds as SD
+
+    static, scene, cam = _doom_like(dev, str(tmp_path))
+    w, h = DS_W, DS_H
+    pix = torch.as_tensor(R.tiled_pixel_order(w, h).astype(np.int64), device=dev)
+    px, py = (pix % w).to(torch.int32), (pix // w).to(torch.int32)
+    target = torch.full((pix.shape[0], 3), 0.25, device=dev)
+
+    def run():
+        return G.loss_and_grad(static, scene, cam, px, py, pix, torch.zeros_like(pix),
+                               7300000001, target)
+
+    before = dict(P.LAUNCHES)
+    with P.record() as rec:
+        loss, grads = run()
+    assert set(_ds_added(before)) == set(DS_KEYS) and rec.counts["sphere_ds_eager"] > 0
+    for name in ("closest", "occludes", "intersect"):
+        monkeypatch.setattr(SD, name, getattr(SD, f"{name}_plain"))
+    before = dict(P.LAUNCHES)
+    loss_p, grads_p = run()
+    assert _ds_added(before) == {}
+    assert loss.item() == loss_p.item() and loss.item() > 0
+    for g, g_p in zip(G.flatten_params(grads), G.flatten_params(grads_p)):
+        if g is None or g_p is None:
+            assert g is None and g_p is None
+            continue
+        torch.testing.assert_close(g, g_p, rtol=1e-5,
+                                   atol=1e-6 * max(float(g_p.abs().max()), 1e-30))
