@@ -29,7 +29,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      them (65,536 lanes, the step run eagerly), on doom_standin's table (the
      ground and the sphere light) and on the environment cell's (the
      ground with its low part: dragon_standin's mesh and floor under the
-     sunrise HDRI with env NEE, no light), and timed as in 4, beside the
+     sunrise HDRI with env NEE, no light) and on the dragon room's
+     (dragon_standin: six radius-1e6 walls and the ceiling light, seven
+     spheres, the floor with its low part), and timed as in 4, beside the
      larger of the lanes' bytes over 3.35 TB/s and 322 FP32 operations a
      lane and sphere tested over the FP32 peak;
   3. parity, spheres: K1/K2 against their plain PyTorch versions on the
@@ -99,8 +101,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      it and read just after, both lane RNG kernels launched on each: the CLI renders the 500-sphere stress scene at
      720x480, 8 spp (K1; no double-single kernel: no big sphere, no light); the lit stress scene renders at 720x480, 4 spp
      (K1, K2); the CLI renders scenes/doom_standin.yml at 720x480, 4 spp and
-     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4; on doom the
-     double-single test's three kernels too), their meshes
+     scenes/dragon_standin.yml at 720x480, 2 spp (K3, K4, and the
+     double-single test's three kernels), their meshes
      parsed by the C++ parser (the CLI's first line gives the scene build's
      seconds); then, with
      PATHS_TPU_SPH_FLAT=1, the CLI on stress-500 at 720x480, 8 spp (K5
@@ -799,12 +801,14 @@ def sphere_ds_phase(device, width=720, height=480, lanes=SUBSET):
     tiled pixel order) gives each wrapper: on doom_standin's table (the
     ground and the sphere light; all three queries) and on the environment
     cell's (environment_like_scene: the floor alone; the closest hit and the
-    environment NEE's shadow test).  Bounded by the larger of the lanes'
-    bytes and the tables' over the HBM rate, and 322 FP32 operations a
-    lane and sphere tested (a shadow lane up to its first occluder) over
-    the FP32 peak.  Returns {kernel: record}: doom's numbers under the
-    names of the traversal kernels' records, the environment's prefixed
-    env_."""
+    environment NEE's shadow test) and on the dragon room's (dragon_standin:
+    six radius-1e6 walls and the light half inside the ceiling; all three
+    queries).  Bounded by the larger of the lanes' bytes and the tables'
+    over the HBM rate, and 322 FP32 operations a lane and sphere tested (a
+    shadow lane up to its first occluder) over the FP32 peak.  Returns
+    {kernel: record}: doom's numbers under the names of the traversal
+    kernels' records, the environment's prefixed env_, the room's
+    dragon_."""
     import numpy as np
     import torch
 
@@ -822,7 +826,9 @@ def sphere_ds_phase(device, width=720, height=480, lanes=SUBSET):
     for table, make, queries in (
             ("doom", lambda: build_scene(load_scene_description(DOOM), device=device),
              ("closest", "occludes", "intersect")),
-            ("environment", lambda: environment_like_scene(device), ("closest", "occludes"))):
+            ("environment", lambda: environment_like_scene(device), ("closest", "occludes")),
+            ("dragon", lambda: build_scene(load_scene_description(DRAGON), device=device),
+             ("closest", "occludes", "intersect"))):
         static, scene, cam = make()
         cam = C.resize(cam, width, height)
         with eager_step():
@@ -868,7 +874,7 @@ def sphere_ds_phase(device, width=720, height=480, lanes=SUBSET):
                 f"({100 * bound_ms / row['device_ms']:.1f}% of its bound "
                 f"{bound_ms * 1e3:.3f} us, by {bound_by}); the plain version "
                 f"{row['plain_ms']:.4f} ms a call")
-            prefix = "" if table == "doom" else "env_"
+            prefix = {"doom": "", "environment": "env_", "dragon": "dragon_"}[table]
             recs.setdefault(name, {}).update({prefix + k: v for k, v in row.items()})
     return recs
 
@@ -1625,7 +1631,8 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
     # Doom's ground and sphere light take the double-single test's three
     # queries on the kernel route; on the BVH route its shadow query takes
     # the closest hit, so the closest-hit kernel twice an iteration and no
-    # any-hit.  Stress-500 has no big sphere and no light, so none.
+    # any-hit.  Dragon's walls and light take all three on the kernel route.
+    # Stress-500 has no big sphere and no light, so none.
     ds = list(DS_KERNELS.values())
     runs = [
         drive("stress-500", lambda: timed_cli(
@@ -1637,7 +1644,7 @@ def main_path(device, out_dir, width=720, height=480, spp=(8, 4, 4, 2)):
             ["tri_closest_hit", "tri_any_hit", *ds]),
         drive("dragon_standin", lambda: timed_cli(
             "dragon_standin", [DRAGON] + cli_args("dragon.png", spp[3]), spp[3]),
-            ["tri_closest_hit", "tri_any_hit"]),
+            ["tri_closest_hit", "tri_any_hit", *ds]),
     ]
     with flat_route():
         runs += [
@@ -2898,7 +2905,7 @@ def main() -> int:
     # CMJ on the same card tensors) and bound_ms at a main-path tile,
     # frame_* at a frame, scalar_* with a scalar bounce (phase 2c); the
     # double-single test's at doom's main-path tile, env_* at the
-    # environment's (phase 2d).
+    # environment's, dragon_* at the dragon room's (phase 2d).
     recs = []
     for name in KERNELS:
         at = own.get(name) or tile.get(name) or (

@@ -171,17 +171,17 @@ __device__ __forceinline__ void sphere_row(const float* center, const float* cen
   }
 }
 
-__global__ void closest_kernel(const float* __restrict__ center,
-                               const float* __restrict__ center_lo,
-                               const float* __restrict__ radius, int lo, int hi,
-                               const float* __restrict__ o,
-                               const float* __restrict__ d,
-                               const bool* __restrict__ excl,
-                               const int* __restrict__ excl_idx,
-                               const float* __restrict__ t_in,
-                               const int* __restrict__ i_in, int n,
-                               float* __restrict__ t_out,
-                               int* __restrict__ i_out) {
+__global__ void sphere_ds_closest_kernel(const float* __restrict__ center,
+                                         const float* __restrict__ center_lo,
+                                         const float* __restrict__ radius, int lo, int hi,
+                                         const float* __restrict__ o,
+                                         const float* __restrict__ d,
+                                         const bool* __restrict__ excl,
+                                         const int* __restrict__ excl_idx,
+                                         const float* __restrict__ t_in,
+                                         const int* __restrict__ i_in, int n,
+                                         float* __restrict__ t_out,
+                                         int* __restrict__ i_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float ro[3], rd[3], c[3], clo[3];
@@ -204,18 +204,18 @@ __global__ void closest_kernel(const float* __restrict__ center,
   i_out[i] = best_i;
 }
 
-__global__ void any_hit_kernel(const float* __restrict__ center,
-                               const float* __restrict__ center_lo,
-                               const float* __restrict__ radius,
-                               const int* __restrict__ ent, int n_spheres,
-                               const float* __restrict__ o,
-                               const float* __restrict__ d,
-                               const bool* __restrict__ excl,
-                               const int* __restrict__ excl_idx,
-                               const float* __restrict__ t_max,
-                               const int* __restrict__ excl_ent,
-                               const bool* __restrict__ occ_in, int n,
-                               bool* __restrict__ occ_out) {
+__global__ void sphere_ds_any_hit_kernel(const float* __restrict__ center,
+                                         const float* __restrict__ center_lo,
+                                         const float* __restrict__ radius,
+                                         const int* __restrict__ ent, int n_spheres,
+                                         const float* __restrict__ o,
+                                         const float* __restrict__ d,
+                                         const bool* __restrict__ excl,
+                                         const int* __restrict__ excl_idx,
+                                         const float* __restrict__ t_max,
+                                         const int* __restrict__ excl_ent,
+                                         const bool* __restrict__ occ_in, int n,
+                                         bool* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   bool occ = occ_in[i];
@@ -237,12 +237,12 @@ __global__ void any_hit_kernel(const float* __restrict__ center,
   occ_out[i] = occ;
 }
 
-__global__ void intersect_kernel(const float* __restrict__ o,
-                                 const float* __restrict__ d,
-                                 const float* __restrict__ center,
-                                 const float* __restrict__ radius, int n,
-                                 float* __restrict__ t_out,
-                                 bool* __restrict__ hit_out) {
+__global__ void sphere_ds_intersect_kernel(const float* __restrict__ o,
+                                           const float* __restrict__ d,
+                                           const float* __restrict__ center,
+                                           const float* __restrict__ radius, int n,
+                                           float* __restrict__ t_out,
+                                           bool* __restrict__ hit_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float ro[3], rd[3], c[3];
@@ -267,7 +267,8 @@ extern "C" int sphere_ds_closest(const float* center, const float* center_lo,
                                  const bool* excl, const int* excl_idx,
                                  const float* t_in, const int* i_in, int n,
                                  float* t_out, int* i_out, void* stream) {
-  closest_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sphere_ds_closest_kernel<<<blocks_for(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       center, center_lo, radius, lo, hi, o, d, excl, excl_idx, t_in, i_in, n, t_out,
       i_out);
   return static_cast<int>(cudaGetLastError());
@@ -281,7 +282,8 @@ extern "C" int sphere_ds_any_hit(const float* center, const float* center_lo,
                                  const float* t_max, const int* excl_ent,
                                  const bool* occ_in, int n, bool* occ_out,
                                  void* stream) {
-  any_hit_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sphere_ds_any_hit_kernel<<<blocks_for(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       center, center_lo, radius, ent, n_spheres, o, d, excl, excl_idx, t_max,
       excl_ent, occ_in, n, occ_out);
   return static_cast<int>(cudaGetLastError());
@@ -292,7 +294,8 @@ extern "C" int sphere_ds_intersect(const float* o, const float* d,
                                    const float* center, const float* radius,
                                    int n, float* t_out, bool* hit_out,
                                    void* stream) {
-  intersect_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sphere_ds_intersect_kernel<<<blocks_for(n), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       o, d, center, radius, n, t_out, hit_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -155,9 +155,17 @@ def _wave_bank(static, *args):
 
 def _all_done(done) -> bool:
     """Whether every lane has retired: the host waits on the card here,
-    before each iteration of render_samples and once after the last."""
+    before each iteration of render_samples and once after the last.
+    While recording, each call that goes on to iterate counts the wave's
+    lanes ("wave_lane_iters") and those not yet retired
+    ("wave_live_lane_iters"), from the same one reduction."""
     with P.span("paths_tpu_torch.wavefront_sync"):
-        return bool(done.all())
+        n_done = int(done.sum())
+    n = done.numel()
+    if n_done < n:
+        P.count("wave_lane_iters", n)
+        P.count("wave_live_lane_iters", n - n_done)
+    return n_done == n
 
 
 def tiled_pixel_order(width: int, height: int, tile: int = 32) -> np.ndarray:

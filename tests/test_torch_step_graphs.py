@@ -129,8 +129,9 @@ def test_render_samples_equals_frozen_copy(scenes, kind):
 
 
 def test_cpu_and_grad_inputs_never_reach_the_cache(scenes):
-    """On the CPU and under autograd every stretch runs eagerly: only
-    step_graph_eager counts and the cache stays empty."""
+    """On the CPU and under autograd every stretch runs eagerly: of the
+    stretches' counts only step_graph_eager counts, beside the wavefront's
+    two lane counts, and the cache stays empty."""
     static, scene, cam = scenes["mesh_light"]
     px, py, pix = lanes("cpu")
     SG.clear()
@@ -140,7 +141,7 @@ def test_cpu_and_grad_inputs_never_reach_the_cache(scenes):
         loss, grads = G.loss_and_grad(static, scene, cam, px, py, pix, torch.zeros_like(pix),
                                       SEED, torch.full((pix.shape[0], 3), 0.25))
     assert eager_render > 0 and rec.counts["step_graph_eager"] > eager_render
-    assert set(rec.counts) == {"step_graph_eager"}
+    assert set(rec.counts) == {"step_graph_eager", "wave_lane_iters", "wave_live_lane_iters"}
     assert SG.entries() == 0
     assert any(float(g.abs().sum()) > 0 for g in G.flatten_params(grads))
 
@@ -398,7 +399,7 @@ def test_lane_rng_launches_count_kernels_run_under_replay(dev, tmp_path, monkeyp
     with P.record() as rec:
         graphed = R.render_samples(static, scene, cam, *lanes_, 0, 2, SEED + 1)
     replayed = dict(P.LAUNCHES)
-    assert set(rec.counts) == {"step_graph_replays"}
+    assert set(rec.counts) == {"step_graph_replays", "wave_lane_iters", "wave_live_lane_iters"}
     monkeypatch.setattr(SG, "run", lambda fn, consts, inputs, into=None:
                         SG.eager(fn(*consts, *inputs)))
     P.reset_launches()
